@@ -4,10 +4,14 @@ Baseline (SOF0) 8-bit JPEG decode: the host parses the stream and decodes
 the entropy-coded scan into dense quantized DCT coefficients, and the device
 does dequantization, the islow 8x8 inverse DCT, chroma upsampling and
 YCbCr->RGB -- for the fused geometries in one hand-written CUDA kernel
-(``csrc/pixel_fused.cu``).  This package imports torch and numpy, never jax.
+(``csrc/pixel_fused.cu``).  With ``entropy="device"`` the Huffman decode
+runs on the device too (``csrc/specsync_scan.cu`` finds the MCU offsets of
+a stream without restart markers, ``csrc/entropy_decode.cu`` decodes).
+This package imports torch and numpy, never jax.
 
     import jpeg_gpu_tpu_torch as jt
     rgb = jt.decode(data, device="cuda", upsample="fancy")  # (H, W, 3) uint8
+    rgb = jt.decode(data, device="cuda", entropy="device")
 """
 
 from jpeg_gpu_tpu_torch.errors import JpegError, JpegFormatError, JpegUnsupportedError

@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/<stem>.cu`` is compiled once per source hash, at first use, into
+Each ``csrc/<stem>.cu`` is compiled once per source hash (the ``.cu`` and
+every ``csrc/*.cuh`` it may include), at first use, into
 ``jpeg_gpu_tpu_torch/_build/`` as a shared library with a plain C interface
 (``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``).  A failed
 build raises: a kernel that does not build must stop the program, never
-fall back to a plain version.
+fall back to a plain version.  Different stems build concurrently when
+loaded from several threads (:func:`load_all`).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ _FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # stem -> {"seconds": build time (0.0 when cached), "log": nvcc's output}
 BUILD_INFO: Dict[str, dict] = {}
@@ -48,11 +51,15 @@ def nvcc_path() -> str:
 
 def load(stem: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<stem>.cu``; raises on failure."""
-    with _LOCK:
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(stem, threading.Lock())
+    with lock:
         if stem in _LIBS:
             return _LIBS[stem]
         src_path = _CSRC / f"{stem}.cu"
         src = src_path.read_bytes()
+        for header in sorted(_CSRC.glob("*.cuh")):
+            src += header.read_bytes()
         tag = hashlib.sha256(src + repr(_FLAGS).encode()).hexdigest()[:16]
         _BUILD.mkdir(parents=True, exist_ok=True)
         out = _BUILD / f"{stem}_{tag}.so"
@@ -76,3 +83,13 @@ def load(stem: str) -> ctypes.CDLL:
         _LIBS[stem] = lib
         BUILD_INFO[stem] = info
         return lib
+
+
+def load_all(stems) -> Dict[str, ctypes.CDLL]:
+    """Build and load several kernels at once, one nvcc per source."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    stems = list(stems)
+    with ThreadPoolExecutor(max_workers=max(1, len(stems))) as pool:
+        libs = list(pool.map(load, stems))
+    return dict(zip(stems, libs))

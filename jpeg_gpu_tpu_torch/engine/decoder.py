@@ -5,9 +5,10 @@ The port of ``jpeg_gpu_tpu/engine/decoder.py``: the same decode surface --
 
 * :class:`HostDecoder`  -- host entropy decode + the plain PyTorch ops on
   the CPU, cropping before fancy upsampling (an independent CPU path);
-* :class:`TorchDecoder` -- host entropy decode + the device pipeline
-  (engine/pipeline.py) on a chosen torch device.  On a CUDA device the RGB
-  decode of the fused geometries runs the K1 kernel.
+* :class:`TorchDecoder` -- entropy decode on the host, or on the device
+  with ``entropy="device"`` (engine/device_entropy.py: K3 and K2), then the
+  device pipeline (engine/pipeline.py) on a chosen torch device.  On a CUDA
+  device the RGB decode of the fused geometries runs the K1 kernel.
 
 Every ``decode`` returns numpy arrays, as the reference's does.
 """
@@ -21,11 +22,15 @@ import numpy as np
 import torch
 
 from jpeg_gpu_tpu_torch.engine.stages import OutputStage
+from jpeg_gpu_tpu_torch.errors import JpegError, JpegUnsupportedError
 from jpeg_gpu_tpu_torch.host import entropy as host_entropy
 from jpeg_gpu_tpu_torch.host.parser import ParsedJpeg, parse
 from jpeg_gpu_tpu_torch.info import JpegHeader
 from jpeg_gpu_tpu_torch.ops import color as color_ops
 from jpeg_gpu_tpu_torch.ops import idct_islow
+from jpeg_gpu_tpu_torch.utils.logging import get_logger
+
+log = get_logger("engine")
 
 StageArg = Union[OutputStage, str]
 
@@ -63,9 +68,12 @@ class PackOutput:
 class Decoder:
     """Base decoder: owns the bitstream, parses lazily, decodes per stage.
 
-    ``entropy`` selects the host scan decoder: "native" (C++
-    restart-parallel, host/native/), "python" (reference implementation),
-    or "auto" (native when the shared object builds).
+    ``entropy`` selects the scan decoder: "native" (C++ restart-parallel,
+    host/native/), "python" (reference implementation), "auto" (native
+    when the shared object builds), or -- for :class:`TorchDecoder` --
+    "device" (the Huffman decode runs on the device; the host only parses
+    and packs the entropy bits).  Where a device decode falls back to the
+    host, "device" uses the Python decoder, as the reference does.
     """
 
     name = "base"
@@ -137,6 +145,78 @@ class Decoder:
             ).coefs
         return self._scan_soa
 
+    def io_bytes(self, out: StageArg = OutputStage.RGB) -> dict:
+        """Host<->device payload bytes for decode(out) in the current mode.
+
+        ``upload`` is the per-frame payload (coefficients, or the entropy
+        bits for ``entropy="device"``), ``download`` the stage's output;
+        Huffman and quant table tensors are reported apart as ``tables``.
+        """
+        stage = _stage(out)
+        hdr = self._parse().header
+        coef_b = sum(c.vblocks * c.hblocks * 64 * 2 for c in hdr.components)
+        down = {
+            OutputStage.RGB: hdr.height * hdr.width * 3,
+            OutputStage.YUV: sum(c.height * c.width for c in hdr.components),
+            OutputStage.QUANT: coef_b,
+            OutputStage.DCT: coef_b * 2,  # int32
+            OutputStage.PACK: 0,          # host-only stage
+        }[stage]
+        tables = 64 * 4 * hdr.ncomps  # dequant tables
+        mode = "host"
+        if stage == OutputStage.PACK:
+            upload = 0
+            tables = 0
+        elif self.entropy == "device":
+            mode, upload, entropy_tables = self._bits_payload(coef_b)
+            tables += entropy_tables
+        else:
+            upload = coef_b
+        return {
+            "upload": int(upload),
+            "download": int(down),
+            "tables": int(tables),
+            "payload": mode,
+        }
+
+    def _bits_payload(self, coef_b: int):
+        """(mode, upload bytes, Huffman table bytes) of the plan that an
+        ``entropy="device"`` decode ships: the window rows of the device
+        index scan for a stream without restart markers, else the
+        build_plan_auto segment rows (plus their DC bases).  The reference
+        sizes the build_plan_auto plan in both cases.  A stream that no
+        planner takes decodes on the host and uploads coefficients."""
+        from jpeg_gpu_tpu_torch.host import segments
+
+        parsed = self._parse()
+        hdr = parsed.header
+        if not hdr.restart_interval and len(parsed.segments) == 1 and hdr.n_mcus >= 2:
+            try:
+                inp = segments.build_spec_scan_input(parsed)
+            except JpegUnsupportedError:
+                pass
+            else:
+                tables = (inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
+                          inp.dc_slot_of_step, inp.ac_slot_of_step, inp.seg_meta,
+                          inp.cbase, inp.counts, inp.symbols)
+                return "bits", inp.windows.nbytes, sum(t.nbytes for t in tables)
+        try:
+            plan = segments.build_plan_auto(parsed)
+        except JpegError:
+            return "host", coef_b, 0
+        upload = plan.streams.nbytes
+        if plan.dc_base is not None:
+            upload += plan.dc_base.nbytes
+        return "bits", upload, sum(t.nbytes for t in plan.kernel_tables)
+
+    def host_entropy(self, out: StageArg = "rgb"):
+        """Run (and cache) the host entropy work that decode(out) will
+        consume, for timing the host/device split without duplicating the
+        decode.  Returns None when decode(out) does its entropy on the
+        device."""
+        stage = _stage(out)
+        return self._entropy(want_pack=(stage == OutputStage.PACK))
+
     def _coef_stage(self, stage: OutputStage):
         parsed = self._parse()
         result = self._entropy(want_pack=(stage == OutputStage.PACK))
@@ -158,6 +238,9 @@ class HostDecoder(Decoder):
     """Full CPU decode: host entropy + the plain PyTorch ops on the CPU."""
 
     name = "host"
+
+    def io_bytes(self, out: StageArg = OutputStage.RGB) -> dict:
+        return {"upload": 0, "download": 0, "tables": 0, "payload": "none"}
 
     def __init__(
         self,
@@ -200,11 +283,15 @@ class HostDecoder(Decoder):
 
 
 class TorchDecoder(Decoder):
-    """Host entropy decode + the device pipeline on ``device``.
+    """Entropy decode + the device pipeline on ``device``.
 
     ``device`` is any torch device; None picks "cuda" when a card is
-    present, else "cpu".  On the CPU the fused RGB geometries run K1's
-    plain version, on a CUDA device the kernel itself.
+    present, else "cpu".  ``entropy="device"`` runs the Huffman decode on
+    the device too (K3 index scan for streams without restart markers, K2
+    decode); the other entropy modes decode on the host and upload
+    coefficients.  ``on_error="zero"`` (device entropy only) turns flagged
+    segments into flat gray blocks instead of raising.  On the CPU every
+    kernel runs its plain version, on a CUDA device the kernel itself.
     """
 
     name = "torch"
@@ -221,12 +308,7 @@ class TorchDecoder(Decoder):
         on_error: str = "raise",
     ):
         super().__init__(data, validate=validate, entropy=entropy)
-        if entropy == "device":
-            raise NotImplementedError(
-                "entropy='device' is not ported yet: see ROADMAP.md, port "
-                "slices 2-3 (K2 device Huffman decode, K3 index scan)"
-            )
-        if entropy not in ("auto", "native", "python"):
+        if entropy not in ("auto", "native", "python", "device"):
             raise ValueError(f"unknown entropy decoder {entropy!r}")
         if upload == "pack":
             raise NotImplementedError(
@@ -240,23 +322,61 @@ class TorchDecoder(Decoder):
                 "exact=False is not ported yet: see ROADMAP.md, port "
                 "slice 6 (K6 float IDCT fast path)"
             )
-        if on_error != "raise":
-            raise NotImplementedError(
-                "on_error='zero' salvage belongs to device entropy: see "
-                "ROADMAP.md, port slice 2 (K2 device Huffman decode)"
-            )
+        if on_error not in ("raise", "zero"):
+            raise ValueError(f"on_error must be 'raise' or 'zero', got {on_error!r}")
         if device is None:
             device = "cuda" if torch.cuda.is_available() else "cpu"
         self.device = torch.device(device)
         self.exact = exact
         self.upload = upload
         self.upsample = upsample
+        self.on_error = on_error
+        # (rounds, records, overflowed) of the last device index scan, or
+        # None when the last decode did not run it (or it fell back).
+        self.specsync_stats = None
+
+    def host_entropy(self, out: StageArg = OutputStage.RGB):
+        from jpeg_gpu_tpu_torch.engine import pipeline
+
+        stage = _stage(out)
+        if self.entropy == "device" and stage != OutputStage.PACK:
+            return None  # the Huffman decode runs on the device
+        if stage == OutputStage.PACK:
+            return self._entropy(want_pack=True)
+        if stage == OutputStage.RGB:
+            spec = pipeline.PipelineSpec.from_header(
+                self._parse().header, exact=self.exact, upsample=self.upsample
+            )
+            if pipeline.fused_rgb_geometry(spec) is not None:
+                soa = self._entropy_soa()
+                if soa is not None:
+                    return soa
+        return self._entropy()
 
     def _decode_tensors(self, stage: OutputStage):
         """decode(stage) without the copy back: tensors on ``self.device``
         (the RGB stage a (H, W, 3) uint8 tensor, the others tuples)."""
         from jpeg_gpu_tpu_torch.engine import pipeline
 
+        if self.entropy == "device":
+            from jpeg_gpu_tpu_torch.engine.device_entropy import decode_image_device
+
+            stats = {}
+            self.specsync_stats = None
+            try:
+                out = decode_image_device(
+                    self._parse(), stage=stage, exact=self.exact,
+                    upsample=self.upsample, on_error=self.on_error,
+                    device=self.device, stats=stats,
+                )
+                self.specsync_stats = stats["specsync_stats"]
+                return out
+            except JpegUnsupportedError as e:
+                # The reference's contract: inputs the device planner rejects
+                # (e.g. a stream without restart markers whose one segment
+                # exceeds the word budget) decode through host entropy, with
+                # the same output.
+                log.info("device entropy plan rejected (%s); host fallback", e)
         hdr = self._parse().header
         spec = pipeline.PipelineSpec.from_header(
             hdr, exact=self.exact, upsample=self.upsample

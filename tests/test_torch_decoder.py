@@ -150,8 +150,7 @@ def dataclass_tuple(c):
             c.hblocks, c.vblocks, c.xdec, c.ydec)
 
 
-@pytest.mark.parametrize("kw", [{"entropy": "device"}, {"upload": "pack"},
-                                {"exact": False}, {"on_error": "zero"}])
+@pytest.mark.parametrize("kw", [{"upload": "pack"}, {"exact": False}])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         jt.TorchDecoder(_enc("4:2:0"), device="cpu", **kw)

@@ -2,7 +2,8 @@
 
 The port cannot import ``jpeg_gpu_tpu.host`` (importing that package loads
 jax), so it carries copies.  They must parse and entropy-decode to the same
-headers and coefficients, and the copied encoder must write the same bytes
+headers and coefficients, build the same device plans and index-scan
+inputs, and the copied encoder must write the same bytes
 wherever the original terminates.  The copy also fixes the original
 encoder's Huffman length-limit loop (Figure K.3 starts the search at
 i - 2), which never returns on images whose optimal code exceeds 16 bits.
@@ -13,10 +14,14 @@ import pytest
 
 from jpeg_gpu_tpu.host import entropy as r_entropy
 from jpeg_gpu_tpu.host import entropy_native as r_native
+from jpeg_gpu_tpu.host import segments as r_segments
+from jpeg_gpu_tpu.host import specsync as r_specsync
 from jpeg_gpu_tpu.host.parser import parse as r_parse
 from jpeg_gpu_tpu.testing import corpus as r_corpus
 from jpeg_gpu_tpu_torch.host import entropy as t_entropy
 from jpeg_gpu_tpu_torch.host import entropy_native as t_native
+from jpeg_gpu_tpu_torch.host import segments as t_segments
+from jpeg_gpu_tpu_torch.host import specsync as t_specsync
 from jpeg_gpu_tpu_torch.host.parser import parse as t_parse
 from jpeg_gpu_tpu_torch.testing import corpus as t_corpus
 from jpeg_gpu_tpu_torch.testing import encoder as t_encoder
@@ -117,3 +122,65 @@ def test_length_limit_keeps_kraft_and_16_bits():
     # The reserved all-ones code is dropped, so the sum stays below 1.
     kraft = sum(int(c) * 2.0 ** -(i + 1) for i, c in enumerate(counts))
     assert kraft < 1.0
+
+
+def _plan_arrays(plan):
+    return [plan.streams, *plan.kernel_tables] + (
+        [] if plan.dc_base is None else [plan.dc_base])
+
+
+@pytest.mark.parametrize("mode", ["mono", "4:2:0", "4:1:1"])
+@pytest.mark.parametrize("restart", [1, 3])
+def test_build_plan_equal(mode, restart):
+    img = _image(mode, 37, 45, seed=8)
+    sub = "4:2:0" if mode == "mono" else mode
+    data = t_corpus.own_jpeg(img, subsampling=sub, restart_interval=restart).data
+    a, b = t_segments.build_plan(t_parse(data)), r_segments.build_plan(r_parse(data))
+    assert (a.n_segments, a.nw, a.mcus_per_segment, a.n_mcus) == (
+        b.n_segments, b.nw, b.mcus_per_segment, b.n_mcus)
+    for x, y in zip(_plan_arrays(a), _plan_arrays(b)):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("mode", ["4:2:0", "4:4:4"])
+def test_build_plan_no_dri_and_auto_equal(mode):
+    data = t_corpus.own_jpeg(_image(mode, 40, 56, seed=9), subsampling=mode).data
+    for build in ("build_plan_no_dri", "build_plan_auto"):
+        a = getattr(t_segments, build)(t_parse(data))
+        b = getattr(r_segments, build)(r_parse(data))
+        assert (a.n_segments, a.nw) == (b.n_segments, b.nw)
+        for x, y in zip(_plan_arrays(a), _plan_arrays(b)):
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("subseq_bytes", [None, 32])
+@pytest.mark.parametrize("mode", ["mono", "4:2:2"])
+def test_build_spec_scan_input_equal(mode, subseq_bytes):
+    sub = "4:2:0" if mode == "mono" else mode
+    data = t_corpus.own_jpeg(_image(mode, 48, 72, seed=10), subsampling=sub).data
+    a = t_segments.build_spec_scan_input(t_parse(data), subseq_bytes=subseq_bytes)
+    b = r_segments.build_spec_scan_input(r_parse(data), subseq_bytes=subseq_bytes)
+    for field in a.__dataclass_fields__:
+        x, y = getattr(a, field), getattr(b, field)
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y)
+        else:
+            assert x == y, field
+
+
+@pytest.mark.parametrize("mode", ["4:2:0", "4:4:4"])
+def test_spec_index_scan_equal(mode):
+    """The numpy oracle of the index scan: the same result as the
+    original's, and the serial native scan's offsets and DC bases."""
+    data = t_corpus.own_jpeg(_image(mode, 32, 48, seed=11), subsampling=mode).data
+    a = t_specsync.spec_index_scan(t_parse(data), subseq_bytes=64)
+    b = r_specsync.spec_index_scan(r_parse(data), subseq_bytes=64)
+    assert a is not None and b is not None
+    for field in ("bitpos", "dc_base", "end_bit", "rounds", "n_subseq"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    bitpos, dc_base, end_bit = t_native.index_scan(t_parse(data), 1)
+    np.testing.assert_array_equal(a.bitpos, bitpos)
+    np.testing.assert_array_equal(a.dc_base, dc_base)
+    assert a.end_bit == end_bit
+    np.testing.assert_array_equal(t_specsync.destuff(t_parse(data)),
+                                  r_specsync.destuff(r_parse(data)))

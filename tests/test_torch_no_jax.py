@@ -29,9 +29,12 @@ assert not leaked, leaked
 """
 
 
-@pytest.mark.parametrize("upsample,entropy", [("nearest", "auto"), ("fancy", "python")])
+@pytest.mark.parametrize("upsample,entropy", [("nearest", "auto"), ("fancy", "python"),
+                                              ("fancy", "device")])
 def test_port_imports_no_jax(upsample, entropy):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # One intra-op thread: the plain kernel versions run many tiny ops, and
+    # this process shares the cores with the other test workers.
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT.format(upsample=upsample, entropy=entropy)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
