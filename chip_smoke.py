@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--seed N]
 
 1. Environment: CUDA and nvcc versions, the card, and the build times and
-   ptxas lines of the kernels -- K1 (csrc/pixel_fused.cu), K2
-   (csrc/entropy_decode.cu) and K3 (csrc/specsync_scan.cu), one nvcc each,
-   all started together -- and of the native host entropy decoder (g++).
+   ptxas lines of the six kernels -- K1 (csrc/pixel_fused.cu), K2
+   (csrc/entropy_decode.cu), K3 (csrc/specsync_scan.cu), K4
+   (csrc/pack_expand.cu), K5 (csrc/idct_islow_plane.cu) and K6
+   (csrc/idct_float.cu), one nvcc each, all started together -- and of the
+   native host entropy decoder (g++).
 2. K1 against its plain PyTorch version on the same CUDA tensors, for the
    five fused geometries x {nearest, fancy} at 17x31, 130x250 and 10x4200.
 3. K2 against its plain version: coefficients and the full flag tensor, for
@@ -16,27 +18,53 @@
 4. K3 against its plain version: bitpos, ok and stats of the whole
    device_index_scan, for 4:2:0, 4:2:2, 4:4:4 and mono at 130x250 with
    32-byte subsequences, and 1080p 4:2:0 at the default stride.
-5. The main path, ``jpeg_gpu_tpu_torch.decode(data, device="cuda")``:
-   with host entropy on a 1080p 4:2:0 frame (nearest and fancy) and a
-   3840x2160 4:2:2 fancy frame (K1); with ``entropy="device"`` on 1080p
-   4:2:0 without restart markers, nearest and fancy (K3 -> K2 -> K1),
-   1080p 4:2:0 with a restart marker per MCU (K2 -> K1) and 4K 4:2:2 fancy
-   without restart markers.  Each equals the CPU path and is close to the
-   encoder's input; every kernel's launch count rose; the frames without
-   restart markers went through the device index scan (no serial
+5. K5 against its plain version (max abs err 0): random blocks on the grids
+   (1, 1), (3, 5), (17, 33) and the 1080p luma grid (136, 240), alone and
+   with a leading axis of 3, int16, as contiguous planes and as strided
+   views of blocks.  K6 against its plain version (max abs err <= 1, the
+   count of differing samples printed): random blocks in [-300, 300) with
+   tables in [1, 50), and IEEE 1180-style statistics of the card's output
+   against a float64 numpy IDCT.  Then K5 and K6 on the decoded coefficients
+   of the frames the main paths decode, every component's grid with its own
+   table: 1080p 4:2:0, 4K 4:2:2, 512x512 grayscale and the h2v4 frame.
+   K4 against its plain version and against the host's dense coefficients
+   (equal): the six modes at 130x250, 64x80 grayscale, 1080p 4:2:0 and
+   4K 4:2:2.
+6. The main paths, each through ``jpeg_gpu_tpu_torch.get_decoder(data,
+   device="cuda", ...).decode(...)`` with the launch counts set to 0 just
+   before and read just after.  First the RGB decodes of the fused
+   geometries: host entropy on a 1080p 4:2:0 frame (nearest and fancy) and
+   a 3840x2160 4:2:2 fancy frame (K1); ``entropy="device"`` on 1080p 4:2:0
+   without restart markers, nearest and fancy (K3 -> K2 -> K1), 1080p 4:2:0
+   with a restart marker per MCU (K2 -> K1) and 4K 4:2:2 fancy without
+   restart markers.  Then the paths of the standalone kernels: ``out="yuv"``
+   at 1080p 4:2:0 with host entropy and with ``entropy="device"`` (K5 x3
+   each), 512x512 grayscale RGB (K5) and a 3-component geometry the fused
+   kernel does not take (K5 x3); ``exact=False`` RGB at 1080p 4:2:0 with
+   host entropy and with ``entropy="device"`` (K6 x3 each; within 2 of the
+   CPU port and within 4 of the exact decode); ``upload="pack"`` fancy RGB
+   at 1080p 4:2:0 and 4K 4:2:2 (K4 -> K5 x3) and ``upload="pack"`` with
+   ``out="quant"`` equal to the host's coefficients.  The exact paths equal
+   the CPU path; every kernel's launch count rose on its path; the frames
+   without restart markers went through the device index scan (no serial
    fallback).  Then one corrupted restart-marked frame with
    ``on_error="zero"`` equals the CPU port's salvage.
-6. Timings with CUDA events after warm-up, each kernel and its plain
+7. Timings with CUDA events after warm-up, each kernel and its plain
    version in turns (plain, kernel, kernel, plain): K1 for coefs->RGB of
    1080p 4:2:0 nearest at batch 8 and of the 4K 4:2:2 fancy frame; K2 on
-   the 1080p R=1 plan; K3 as a whole device_index_scan at 1080p.  Host
-   clock: parse + native entropy, parse + build_spec_scan_input and parse +
-   build_plan per 1080p frame, and the whole decode per 1080p frame with
-   host entropy and with ``entropy="device"`` (with and without restart
-   markers); upload bytes of the bits cut against the coefficient cut; the
-   split of an ``entropy="device"`` decode into its stages (host clock, a
-   sync after each); the card's busy share over five decodes, from
-   torch.profiler's device-side events.
+   the 1080p R=1 plan; K3 as a whole device_index_scan at 1080p; K4 on the
+   1080p pack plan (zero-fill included); K5 and K6 on the three planes of a
+   1080p 4:2:0 frame.  Beside each its bound: the larger of the bytes it
+   must move over the card's memory rate and its operations over the
+   card's float32 rate.  Host clock: parse + native entropy, parse +
+   build_spec_scan_input and parse + build_plan per 1080p frame, and the
+   whole decode per 1080p frame with host entropy, ``entropy="device"``
+   (with and without restart markers), ``upload="pack"`` and
+   ``exact=False``; upload bytes of the bits cut and the pack cut against
+   the coefficient cut; the split of an ``entropy="device"`` decode and of
+   an ``upload="pack"`` decode into their stages (host clock, a sync after
+   each); the card's busy share over five decodes, from torch.profiler's
+   device-side events.
 
 Images come from the package's own baseline encoder, seeded.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at once.
@@ -59,6 +87,27 @@ GEOMETRIES = [("4:4:4", 1, 1), ("4:2:2", 2, 1), ("4:2:0", 2, 2),
               ("4:4:0", 1, 2), ("4:1:1", 4, 1)]
 SIZES = [(17, 31), (130, 250), (10, 4200)]
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds: HBM
+# bytes/s, and float32 operations/s outside the tensor cores.  The data
+# sheet gives no int32 rate: integer operations are counted at the float32
+# rate, which can only make a bound smaller than the true one.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+# Operations of one 8x8 block: islow = 16 passes x (12 multiplies + 50
+# adds and shifts) + 64 dequant multiplies + 64 x (level shift, two
+# clamps); float = 2 x 512 multiply-adds (2 operations each) + 64 x
+# (two converts, multiply, add, round, two clamps).
+ISLOW_OPS_PER_BLOCK = 16 * 62 + 64 + 64 * 3
+FLOAT_OPS_PER_BLOCK = 2 * 512 * 2 + 64 * 7
+COLOUR_OPS_PER_PIXEL = 17    # 3 multiplies, 8 adds and shifts, 6 clamps
+# The least a Huffman symbol costs in one pass over the stream, whatever the
+# algorithm: peek the window, look the code up, shift, extend the value,
+# store or count.  What an implementation spends beyond that (a rank sum
+# over the 16 code lengths, speculative rounds) is its own and is not part
+# of the bound.
+HUFFMAN_OPS_PER_SYMBOL = 10
+PACK_OPS_PER_ENTRY = 10
+
 
 def card_line() -> str:
     out = subprocess.run(
@@ -80,6 +129,38 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and operations over the float32 rate, in ms."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_OPS_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": n_bytes, "bytes_ms": by_bytes, "ops": n_ops, "ops_ms": by_ops}
+
+
+def bound_text(b: dict) -> str:
+    return (f"bound {b['bound_ms']} ms by {b['bound_by']} ({b['bytes']} B -> "
+            f"{b['bytes_ms']} ms at {PEAK_BYTES_PER_S} B/s; {b['ops']} operations -> "
+            f"{b['ops_ms']} ms at {PEAK_OPS_PER_S} op/s)")
+
+
+def symbol_count(coefs) -> int:
+    """Huffman symbols of a scan, from its dense (vb, hb, 8, 8) coefficients:
+    one DC symbol per block, one per non-zero AC coefficient, and an end of
+    block wherever the last zig-zag position is zero (ZRL symbols, rare at
+    this quality, are left out)."""
+    n = 0
+    for c in coefs:
+        c = np.asarray(c).reshape(-1, 64)
+        n += c.shape[0] + int(np.count_nonzero(c[:, 1:])) + int((c[:, 63] == 0).sum())
+    return n
+
+
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
@@ -95,12 +176,20 @@ def main() -> int:
 
     import jpeg_gpu_tpu_torch as jt
     from jpeg_gpu_tpu_torch import cuda_build
-    from jpeg_gpu_tpu_torch.engine import pipeline
+    from jpeg_gpu_tpu_torch.engine import device_entropy, pipeline
     from jpeg_gpu_tpu_torch.host import entropy_native, segments
+    from jpeg_gpu_tpu_torch.host.pack_plan import build_pack_plan
     from jpeg_gpu_tpu_torch.host.parser import parse
-    from jpeg_gpu_tpu_torch.ops import entropy_device, pixel_fused, specsync_device
+    from jpeg_gpu_tpu_torch.ops import (
+        entropy_device, idct_float, idct_islow_plane, pack_device, pixel_fused,
+        specsync_device,
+    )
+    from jpeg_gpu_tpu_torch.ops import color as color_ops
+    from jpeg_gpu_tpu_torch.ops import idct as idct_ops
+    from jpeg_gpu_tpu_torch.ops.block_plane import blocks_as_soa
     from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
     from jpeg_gpu_tpu_torch.testing import corpus
+    from jpeg_gpu_tpu_torch.testing.encoder import _M as DCT_BASIS_F64
 
     dev = torch.device("cuda")
     card = card_line()
@@ -114,18 +203,22 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}; nvcc: {nvcc_version}")
     print(f"card: {card}")
     t0 = time.perf_counter()
-    cuda_build.load_all(["pixel_fused", "entropy_decode", "specsync_scan"])
+    stems = (("K1", "pixel_fused"), ("K2", "entropy_decode"), ("K3", "specsync_scan"),
+             ("K4", "pack_expand"), ("K5", "idct_islow_plane"), ("K6", "idct_float"))
+    cuda_build.load_all([stem for _, stem in stems])
     print(f"kernel builds, in parallel: {time.perf_counter() - t0} s wall")
-    pixel_fused._kernel()
-    entropy_device._kernel()
-    specsync_device._kernel()
-    for name, stem in (("K1", "pixel_fused"), ("K2", "entropy_decode"),
-                       ("K3", "specsync_scan")):
+    kernels = (pixel_fused, entropy_device, specsync_device, pack_device,
+               idct_islow_plane, idct_float)
+    for mod in kernels:
+        mod._kernel()
+    for name, stem in stems:
         info = cuda_build.BUILD_INFO[stem]
         print(f"{name} build (nvcc, sm_90a, csrc/{stem}.cu): {info['seconds']} s")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    # The plain versions of K6 take float32 products through torch.einsum.
+    assert not torch.backends.cuda.matmul.allow_tf32
     t0 = time.perf_counter()
     assert entropy_native.available(), "native host entropy decoder did not build"
     print(f"native entropy build + load (g++): {time.perf_counter() - t0} s")
@@ -260,8 +353,131 @@ def main() -> int:
     k3_stats, err = k3_case("1080p 4:2:0", data1080)
     k3_err = max(k3_err, err)
 
-    # -- 5. the main path ----------------------------------------------------
+    # -- 5. K5, K6 and K4 against their plain versions -----------------------
+    rng = np.random.default_rng(args.seed + 30)
+
+    def random_blocks(shape, lim, qhi):
+        c = rng.integers(-lim, lim, size=shape + (8, 8), dtype=np.int16)
+        q = rng.integers(1, qhi, size=64).astype(np.int32)
+        return torch.from_numpy(c).to(dev), torch.from_numpy(q).to(dev)
+
+    k5_err = 0
+    for vb, hb in ((1, 1), (3, 5), (17, 33), (136, 240)):
+        for lead in ((), (3,)):
+            c, q = random_blocks(lead + (vb, hb), 1500, 64)
+            for layout, soa in (("planes", blocks_as_soa(c).contiguous()),
+                                ("view of blocks", blocks_as_soa(c))):
+                got = idct_islow_plane.dequant_idct_islow_plane_soa(soa, q)
+                ref = idct_islow_plane.dequant_idct_islow_plane_soa_reference(soa, q)
+                torch.cuda.synchronize()
+                assert got.shape == ref.shape == lead + (vb * 8, hb * 8)
+                err = int((got.int() - ref.int()).abs().max())
+                k5_err = max(k5_err, err)
+                print(f"K5 vs plain {lead + (vb, hb)} blocks, int16, {layout}: "
+                      f"max abs err {err}")
+                assert err == 0, (lead, vb, hb, layout)
+
+    k6_err = 0
+
+    def k6_case(name, got, ref):
+        nonlocal k6_err
+        torch.cuda.synchronize()
+        diff = (got.int() - ref.int()).abs()
+        err, ndiff = int(diff.max()), int((diff != 0).sum())
+        k6_err = max(k6_err, err)
+        print(f"K6 vs plain {name}: max abs err {err}, {ndiff} of {diff.numel()} "
+              f"samples differ")
+        assert err <= 1, name
+
+    c, q = random_blocks((100000,), 300, 50)
+    k6_case("100000 random blocks in [-300, 300), table in [1, 50), blocks in and out",
+            idct_float.dequant_idct_pixels_fused(c, q),
+            idct_float.dequant_idct_pixels_reference(c, q))
+    c, q = random_blocks((3, 17, 33), 300, 50)
+    k6_case("(3, 17, 33) random blocks, view of blocks",
+            idct_float.dequant_idct_float_plane_soa(blocks_as_soa(c), q),
+            idct_float.dequant_idct_float_plane_soa_reference(blocks_as_soa(c), q))
+    for lo, hi in ((-256, 255), (-5, 5), (-300, 300)):
+        # IEEE 1180-1990 style: random pixel blocks -> float64 forward DCT ->
+        # integer coefficients; the card's samples against a float64 IDCT.
+        pix = rng.integers(lo, hi + 1, size=(10000, 8, 8)).astype(np.float64)
+        coefs = np.einsum("ui,nij,vj->nuv", DCT_BASIS_F64, pix, DCT_BASIS_F64)
+        coefs = np.clip(np.round(coefs), -2048, 2047).astype(np.int16)
+        exact = np.einsum("ui,nuv,vj->nij", DCT_BASIS_F64, coefs.astype(np.float64),
+                          DCT_BASIS_F64)
+        exact = np.clip(np.round(exact + 128.0), 0, 255)
+        got = idct_float.dequant_idct_pixels_fused(
+            torch.from_numpy(coefs).to(dev), torch.ones(64, dtype=torch.int32, device=dev))
+        e = got.cpu().numpy().astype(np.float64) - exact
+        print(f"K6 vs float64 IDCT, pixel range [{lo}, {hi}], 10000 blocks: peak error "
+              f"{np.abs(e).max()}, mean square error {(e ** 2).mean()}, worst pixel "
+              f"mean square error {(e ** 2).mean(axis=0).max()}, mean error {e.mean()}")
+        assert np.abs(e).max() <= 1 and (e ** 2).mean() <= 0.02
+        assert (e ** 2).mean(axis=0).max() <= 0.06 and abs(e.mean()) <= 0.0015
+
+    k4_err = 0
+
+    def k4_case(name, data):
+        nonlocal k4_err
+        parsed = parse(data)
+        scan = entropy_native.decode_scan(parsed, want_pack=True)
+        plan = build_pack_plan(parsed, scan)
+        streams, = plan_tensors((plan.streams,), dev)
+        got = pack_device.expand_pack_device(streams, plan.blocks_per_segment)
+        ref = pack_device.expand_pack_reference(streams, plan.blocks_per_segment)
+        torch.cuda.synchronize()
+        err = int((got.int() - ref.int()).abs().max())
+        k4_err = max(k4_err, err)
+        dense = device_entropy.expand_pack_device(parsed, scan, dev)
+        same = all(np.array_equal(d.cpu().numpy(), h) for d, h in zip(dense, scan.coefs))
+        print(f"K4 vs plain {name}: streams {tuple(streams.shape)}, "
+              f"{plan.n_segments} lanes x {plan.blocks_per_segment} blocks, "
+              f"{plan.packed_entries} entries: max abs err {err}; assembled == the "
+              f"host's dense coefficients: {same}")
+        assert err == 0 and same, name
+        return parsed, scan, plan
+
+    for mode in ("mono", "4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1"):
+        k4_case(f"{mode} 130x250", encode(130, 250, mode, args.seed + 31)[1])
+    k4_case("mono 64x80", encode(64, 80, "mono", args.seed + 32)[1])
+    parsed1080, scan1080, pack1080 = k4_case("1080p 4:2:0", data1080)
     img4k, data4k = encode(2160, 3840, "4:2:2", args.seed + 1)
+    parsed4k, scan4k, _ = k4_case("4K 4:2:2", data4k)
+    gray = corpus.synthetic_rgb(512, 512, seed=args.seed + 2)[..., 1].copy()
+    data_gray = corpus.own_jpeg(gray, quality=85).data
+    img_v4 = corpus.synthetic_rgb(130, 250, seed=args.seed + 3)
+    data_v4 = corpus.own_jpeg(img_v4, subsampling="h2v4", quality=85).data
+
+    def decoded_planes(name, parsed, coefs):
+        """K5 and K6 against their plain versions on a frame's decoded
+        coefficients: every component's block grid as the main path hands
+        it over (a view of blocks), with the component's own table."""
+        nonlocal k5_err
+        hdr = parsed.header
+        planes, qts = pipeline.to_torch_inputs(
+            coefs, [hdr.quant_for(c).values for c in hdr.components], dev)
+        for ci, (c, q) in enumerate(zip(planes, qts)):
+            soa = blocks_as_soa(c)
+            got = idct_islow_plane.dequant_idct_islow_plane_soa(soa, q)
+            ref = idct_islow_plane.dequant_idct_islow_plane_soa_reference(soa, q)
+            torch.cuda.synchronize()
+            err = int((got.int() - ref.int()).abs().max())
+            k5_err = max(k5_err, err)
+            print(f"K5 vs plain {name} decoded coefficients, component {ci} "
+                  f"{tuple(c.shape[:2])} blocks: max abs err {err}")
+            assert err == 0, (name, ci)
+            k6_case(f"{name} decoded coefficients, component {ci} {tuple(c.shape[:2])} blocks",
+                    idct_float.dequant_idct_float_plane_soa(soa, q),
+                    idct_float.dequant_idct_float_plane_soa_reference(soa, q))
+        return planes, qts
+
+    k6_planes, k6_qts = decoded_planes("1080p 4:2:0", parsed1080, scan1080.coefs)
+    decoded_planes("4K 4:2:2", parsed4k, scan4k.coefs)
+    for name, data in (("512x512 gray", data_gray), ("130x250 h2v4", data_v4)):
+        parsed = parse(data)
+        decoded_planes(name, parsed, entropy_native.decode_scan(parsed).coefs)
+
+    # -- 6. the main paths ---------------------------------------------------
     frames = [("1080p 4:2:0", img1080, data1080, "nearest", "auto"),
               ("1080p 4:2:0", img1080, data1080, "fancy", "auto"),
               ("4K 4:2:2", img4k, data4k, "fancy", "auto"),
@@ -269,7 +485,6 @@ def main() -> int:
               ("1080p 4:2:0", img1080, data1080, "fancy", "device"),
               ("1080p 4:2:0 R=1", img1080r, data1080r, "nearest", "device"),
               ("4K 4:2:2", img4k, data4k, "fancy", "device")]
-    kernels = (pixel_fused, entropy_device, specsync_device)
     for mod in kernels:
         mod.launches = 0
     outs, scan_stats = [], []
@@ -279,15 +494,24 @@ def main() -> int:
         scan_stats.append(dec.specsync_stats)
     torch.cuda.synchronize()
     main_launches = [mod.launches for mod in kernels]
-    print(f"main path: {len(frames)} decodes; launches K1 {main_launches[0]}, "
-          f"K2 {main_launches[1]}, K3 {main_launches[2]}")
+    print(f"main path, RGB of the fused geometries: {len(frames)} decodes; launches "
+          f"K1 {main_launches[0]}, K2 {main_launches[1]}, K3 {main_launches[2]}")
     n_dev = sum(ent == "device" for *_, ent in frames)
     assert main_launches[0] >= len(frames), main_launches
     assert main_launches[1] >= n_dev, main_launches
     assert main_launches[2] >= 2 * 3, main_launches  # >= 1 round + record, 3 frames
+    cpu_cache = {}
+
+    def cpu_decode(data, stage="rgb", **kw):
+        """The port's CPU path (default upload and entropy), decoded once."""
+        key = (id(data), stage, tuple(sorted(kw.items())))
+        if key not in cpu_cache:
+            cpu_cache[key] = jt.decode(data, out=stage, device="cpu", **kw)
+        return cpu_cache[key]
+
     for (name, img, data, ups, ent), out, st in zip(frames, outs, scan_stats):
         h, w = img.shape[:2]
-        cpu = jt.decode(data, device="cpu", upsample=ups)
+        cpu = cpu_decode(data, upsample=ups)
         assert out.shape == (h, w, 3) and out.dtype == np.uint8, out.shape
         assert np.array_equal(out, cpu), (name, ups, ent)
         q = psnr(out, img)
@@ -299,6 +523,66 @@ def main() -> int:
         if ent == "device" and "R=1" not in name:
             assert st is not None, f"{name}: the serial index scan ran, not K3"
 
+    # The paths of the standalone kernels, counts set to 0 again.
+    def parts(r):
+        return [r] if isinstance(r, np.ndarray) else (getattr(r, "planes", None) or r.coefs)
+
+    def maxdiff(a, b):
+        return max(int(np.abs(x.astype(np.int32) - y.astype(np.int32)).max())
+                   for x, y in zip(parts(a), parts(b)))
+
+    # (name, data, stage, decoder options, launches expected of (K4, K5, K6))
+    paths = [
+        ("1080p 4:2:0 yuv", data1080, "yuv", {}, (0, 3, 0)),
+        ("1080p 4:2:0 yuv entropy=device", data1080, "yuv", {"entropy": "device"}, (0, 3, 0)),
+        ("512x512 gray rgb", data_gray, "rgb", {}, (0, 1, 0)),
+        ("130x250 h2v4 fancy rgb (no fused geometry)", data_v4, "rgb",
+         {"upsample": "fancy"}, (0, 3, 0)),
+        ("1080p 4:2:0 rgb exact=False", data1080, "rgb", {"exact": False}, (0, 0, 3)),
+        ("1080p 4:2:0 rgb exact=False entropy=device", data1080, "rgb",
+         {"exact": False, "entropy": "device"}, (0, 0, 3)),
+        ("1080p 4:2:0 fancy rgb upload=pack", data1080, "rgb",
+         {"upload": "pack", "upsample": "fancy"}, (1, 3, 0)),
+        ("4K 4:2:2 fancy rgb upload=pack", data4k, "rgb",
+         {"upload": "pack", "upsample": "fancy"}, (1, 3, 0)),
+        ("1080p 4:2:0 quant upload=pack", data1080, "quant", {"upload": "pack"}, (1, 0, 0)),
+    ]
+    for mod in kernels:
+        mod.launches = 0
+    path_outs, path_counts = [], []
+    for name, data, stage, kw, _ in paths:
+        before = [mod.launches for mod in kernels]
+        path_outs.append(jt.get_decoder(data, device="cuda", **kw).decode(stage))
+        path_counts.append([mod.launches - b for mod, b in zip(kernels, before)])
+    torch.cuda.synchronize()
+    path_launches = [mod.launches for mod in kernels]
+    print(f"main paths of the standalone kernels: {len(paths)} decodes; launches "
+          + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(path_launches)))
+    assert all(path_launches[i] > 0 for i in (3, 4, 5)), path_launches
+    for (name, data, stage, kw, want), out, counts in zip(paths, path_outs, path_counts):
+        assert tuple(counts[3:]) == want, (name, counts)
+        # The CPU path at the default upload: upload="pack" must change nothing.
+        cpu_kw = {"upsample": kw.get("upsample", "nearest")}
+        if not kw.get("exact", True):
+            cpu_kw["exact"] = False
+        cpu = cpu_decode(data, stage, **cpu_kw)
+        for a, b in zip(parts(out), parts(cpu)):
+            assert a.shape == b.shape and a.dtype == b.dtype, (name, a.shape, b.shape)
+        d = maxdiff(out, cpu)
+        text = f"max abs diff vs the CPU path {d}"
+        if kw.get("exact", True):
+            assert d == 0, (name, d)
+        else:
+            dx = maxdiff(out, cpu_decode(data, stage, upsample=cpu_kw["upsample"]))
+            text += f" (allowed 2), vs the exact decode {dx} (allowed 4)"
+            assert d <= 2 and dx <= 4, (name, d, dx)
+        print(f"main path {name}: launches K4 {counts[3]}, K5 {counts[4]}, "
+              f"K6 {counts[5]}; {text}")
+    quant = parts(path_outs[-1])
+    assert all(np.array_equal(a, b) for a, b in zip(quant, scan1080.coefs))
+    print("main path 1080p 4:2:0 quant upload=pack: equal to the host's coefficients")
+    main_launches = [a + b for a, b in zip(main_launches, path_launches)]
+
     _, small = encode(256, 384, "4:2:0", args.seed + 24, restart=1)
     bad = corrupt_segment(small, 40)
     salvaged = jt.decode(bad, device="cuda", entropy="device", on_error="zero")
@@ -307,7 +591,7 @@ def main() -> int:
     print("on_error='zero', 256x384 4:2:0 R=1 with segment 40 corrupted: "
           "equal to the CPU port's salvage")
 
-    # -- 6. timings ----------------------------------------------------------
+    # -- 7. timings ----------------------------------------------------------
     def stage_split(data, reps):
         """Mean host-clock ms of each stage of an entropy='device' RGB decode
         (nearest) as decode_image_device runs it, with a sync after each."""
@@ -416,13 +700,17 @@ def main() -> int:
         plain_ms.append(cuda_ms(plain, 10))
         k_ms, p_ms = sum(kernel_ms) / 2, sum(plain_ms) / 2
         mpix = len(images) * spec.height * spec.width / 1e6
+        tensors = [t for t in a if isinstance(t, torch.Tensor)]
+        b = bound(nbytes(*tensors, got),
+                  sum(t.numel() for t in a[:3]) // 64 * ISLOW_OPS_PER_BLOCK
+                  + got.numel() // 3 * COLOUR_OPS_PER_PIXEL)
         print(f"K1 coefs->RGB {name}: kernel {k_ms} ms ({mpix / k_ms * 1e3} Mpix/s) "
               f"runs {kernel_ms}; plain torch {p_ms} ms ({mpix / p_ms * 1e3} Mpix/s) "
-              f"runs {plain_ms}  [{card}]")
-        return k_ms, p_ms
+              f"runs {plain_ms}; {bound_text(b)}  [{card}]")
+        return k_ms, p_ms, b
 
     batch = 8
-    k_ms, p_ms = time_k1(
+    k_ms, p_ms, k1_bound = time_k1(
         f"1080p 4:2:0 nearest, batch {batch}",
         [corpus.synthetic_rgb(1080, 1920, seed=args.seed + 10 + b) for b in range(batch)],
         "4:2:0", "nearest")
@@ -441,22 +729,104 @@ def main() -> int:
 
     t = plan_tensors((plan1080.streams,) + plan1080.kernel_tables, dev)
     zero_img = torch.zeros(t[0].shape[0], dtype=torch.int32, device=dev)
-    k2_ms, k2_plain_ms, kr, pr = in_turns(
+    k2_ms, k2_plain_ms, kr, plr = in_turns(
         lambda: entropy_device.decode_segments_device(*t),
         lambda: entropy_device.decode_segments_reference(
             t[0], zero_img, t[1], t[2], t[3], t[4][None], t[5][None], t[6][None],
             t[7][None]),
         20, 1)
-    print(f"K2 Huffman decode, 1080p 4:2:0 R=1 plan {tuple(t[0].shape)}: kernel "
-          f"{k2_ms} ms runs {kr}; plain torch {k2_plain_ms} ms runs {pr}  [{card}]")
+    symbols1080 = symbol_count(scan1080.coefs)
+    k2_out = entropy_device.decode_segments_device(*t)
+    k2_bound = bound(nbytes(*t, *k2_out), symbols1080 * HUFFMAN_OPS_PER_SYMBOL)
+    print(f"K2 Huffman decode, 1080p 4:2:0 R=1 plan {tuple(t[0].shape)}, {symbols1080} "
+          f"symbols: kernel {k2_ms} ms runs {kr}; plain torch {k2_plain_ms} ms runs {plr}; "
+          f"{bound_text(k2_bound)}  [{card}]")
 
     a, kw = scan_inputs(data1080)
-    k3_ms, k3_plain_ms, kr, pr = in_turns(
+    k3_ms, k3_plain_ms, kr, plr = in_turns(
         lambda: specsync_device.device_index_scan(*a, **kw),
         lambda: specsync_device.device_index_scan(*a, **kw, plain=True), 10, 1)
+    k3_out = specsync_device.device_index_scan(*a, **kw)
+    k3_bound = bound(nbytes(*(x for x in a if isinstance(x, torch.Tensor)), *k3_out),
+                     symbols1080 * HUFFMAN_OPS_PER_SYMBOL)
     print(f"K3 whole device_index_scan, 1080p 4:2:0 (windows {tuple(a[0].shape)}, "
-          f"{k3_stats[0]} rounds + record pass): kernel {k3_ms} ms runs {kr}; "
-          f"plain torch {k3_plain_ms} ms runs {pr}  [{card}]")
+          f"{symbols1080} symbols; this implementation walked them in {k3_stats[0]} "
+          f"rounds + a record pass): kernel {k3_ms} ms runs {kr}; plain torch "
+          f"{k3_plain_ms} ms runs {plr}; {bound_text(k3_bound)}, one pass over the "
+          f"symbols -- a lane is one serial chain of dependent symbol decodes, so the "
+          f"chain's length and not the bytes sets the kernel's time  [{card}]")
+
+    streams1080, = plan_tensors((pack1080.streams,), dev)
+    t_blocks = pack1080.blocks_per_segment
+    k4_ms, k4_plain_ms, kr, plr = in_turns(
+        lambda: pack_device.expand_pack_device(streams1080, t_blocks),
+        lambda: pack_device.expand_pack_reference(streams1080, t_blocks), 50, 1)
+    k4_bound = bound(
+        nbytes(streams1080, pack_device.expand_pack_device(streams1080, t_blocks)),
+        pack1080.packed_entries * PACK_OPS_PER_ENTRY)
+    print(f"K4 PACK expansion with its zero-fill, 1080p 4:2:0 plan "
+          f"{tuple(streams1080.shape)}, {pack1080.n_segments} lanes x {t_blocks} blocks, "
+          f"{pack1080.packed_entries} entries: kernel {k4_ms} ms runs {kr}; plain torch "
+          f"{k4_plain_ms} ms runs {plr}; {bound_text(k4_bound)}  [{card}]")
+
+    def time_planes(name, kernel_fn, plain_fn, ops_per_block):
+        """The three planes of the 1080p 4:2:0 frame as the main path hands
+        them over (strided views of blocks), one launch per plane; beside
+        it the same planes as contiguous SoA tensors."""
+        views = [blocks_as_soa(c) for c in k6_planes]
+        outs = [kernel_fn(v, q) for v, q in zip(views, k6_qts)]
+        ms, plain_ms, kr, plr = in_turns(
+            lambda: [kernel_fn(v, q) for v, q in zip(views, k6_qts)],
+            lambda: [plain_fn(v, q) for v, q in zip(views, k6_qts)], 50, 5)
+        soas = [v.contiguous() for v in views]
+        soa_ms = cuda_ms(lambda: [kernel_fn(v, q) for v, q in zip(soas, k6_qts)], 50)
+        b = bound(nbytes(*k6_planes, *k6_qts, *outs),
+                  sum(c.numel() for c in k6_planes) // 64 * ops_per_block)
+        print(f"{name}, the three planes of 1080p 4:2:0 "
+              f"{[tuple(c.shape[:2]) for c in k6_planes]} blocks, 3 launches: kernel "
+              f"{ms} ms runs {kr} (contiguous SoA planes: {soa_ms} ms); plain torch "
+              f"{plain_ms} ms runs {plr}; {bound_text(b)}  [{card}]")
+        return ms, plain_ms, b
+
+    k5_ms, k5_plain_ms, k5_bound = time_planes(
+        "K5 islow plane IDCT", idct_islow_plane.dequant_idct_islow_plane_soa,
+        idct_islow_plane.dequant_idct_islow_plane_soa_reference, ISLOW_OPS_PER_BLOCK)
+    k6_ms, k6_plain_ms, k6_bound = time_planes(
+        "K6 float plane IDCT", idct_float.dequant_idct_float_plane_soa,
+        idct_float.dequant_idct_float_plane_soa_reference, FLOAT_OPS_PER_BLOCK)
+
+    # One library call for K6's function: the IDCT as a transposed
+    # convolution of the 64 coefficient planes with stride 8, the quant table
+    # folded into the weights and the level shift as the bias.  Full float32
+    # (no TF32); the rounding and the cast to u8 are outside the timed call.
+    # Timed as a yardstick only: the package never calls it.
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    basis = torch.from_numpy(idct_ops.IDCT_BASIS).to(dev)
+    lib_in, lib_w = [], []
+    for c, q in zip(k6_planes, k6_qts):
+        lib_in.append(blocks_as_soa(c).to(torch.float32).contiguous()[None])
+        w = torch.einsum("ui,vj->uvij", basis, basis).reshape(64, 1, 8, 8)
+        lib_w.append(w * q.reshape(64, 1, 1, 1).to(torch.float32))
+    shift = torch.full((1,), 128.0, device=dev)
+
+    def library():
+        return [torch.nn.functional.conv_transpose2d(x, w, shift, stride=8)
+                for x, w in zip(lib_in, lib_w)]
+
+    lib_err = 0
+    for z, c, q in zip(library(), k6_planes, k6_qts):
+        z = torch.round(z[0, 0]).clamp(0, 255).to(torch.uint8)
+        got = idct_float.dequant_idct_float_plane_soa(blocks_as_soa(c), q)
+        lib_err = max(lib_err, int((z.int() - got.int()).abs().max()))
+    assert lib_err <= 1, lib_err
+    for _ in range(3):
+        library()
+    k6_library_ms = (cuda_ms(library, 20) + cuda_ms(library, 20)) / 2
+    torch.backends.cudnn.allow_tf32 = tf32_before
+    print(f"K6's function as one library call per plane "
+          f"(torch.nn.functional.conv_transpose2d, stride 8, float32 input ready): "
+          f"{k6_library_ms} ms for the three planes, max abs diff vs K6 {lib_err}  [{card}]")
 
     def host_ms(fn):
         fn()
@@ -488,6 +858,72 @@ def main() -> int:
     print(f"whole decode jt.decode(device='cuda') 1080p 4:2:0 nearest: "
           f"{e2e_ms} ms/frame  [{card}]")
 
+    for name, kw in (("upload='pack'", {"upload": "pack"}), ("exact=False", {"exact": False}),
+                     ("out='yuv'", {})):
+        stage = "yuv" if "yuv" in name else "rgb"
+        ms = host_ms(lambda: jt.decode(data1080, out=stage, device="cuda", **kw))
+        print(f"whole decode jt.decode(device='cuda', {name}) 1080p 4:2:0 nearest: "
+              f"{ms} ms/frame  [{card}]")
+    pack_io = jt.get_decoder(data1080, device="cuda", upload="pack").io_bytes()
+    coef_io = jt.get_decoder(data1080, device="cuda").io_bytes()
+    bits_io = jt.get_decoder(data1080, device="cuda", entropy="device").io_bytes()
+    print(f"io_bytes 1080p 4:2:0 without restart markers: pack cut upload "
+          f"{pack_io['upload']} B ({pack1080.packed_entries} entries of 2 B + the block "
+          f"index), coefficient cut {coef_io['upload']} B, bits cut {bits_io['upload']} B; "
+          f"pack / coefficients {pack_io['upload'] / coef_io['upload']}; the K4 rows that "
+          f"are shipped: {pack1080.streams.nbytes} B")
+
+    def pack_split(data, reps):
+        """Mean host-clock ms of each stage of an upload='pack' RGB decode
+        (nearest) as TorchDecoder runs it, with a sync after each."""
+        split = {}
+
+        def mark(name, t0):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            split[name] = split.get(name, 0.0) + (t1 - t0) * 1e3
+            return t1
+
+        for i in range(reps + 1):  # the first pass warms up
+            if i == 1:
+                split.clear()
+            t = time.perf_counter()
+            parsed = parse(data)
+            hdr = parsed.header
+            scan = entropy_native.decode_scan(parsed, want_pack=True)
+            t = mark("host parse + native entropy with the pack stream", t)
+            plan = build_pack_plan(parsed, scan)
+            t = mark("host build_pack_plan (lane rows)", t)
+            streams, = plan_tensors((plan.streams,), dev)
+            t = mark("H2D of the pack rows", t)
+            out = pack_device.expand_pack_device(streams, plan.blocks_per_segment)
+            t = mark("K4 (zero-fill + kernel)", t)
+            geom_c = tuple((hdr.components[c].hsamp, hdr.components[c].vsamp)
+                           for c in hdr.scan.comp_idx)
+            coefs = entropy_device.assemble_components(
+                out, plan.n_segments, plan.mcus_per_segment, hdr.n_mcus, hdr.nhmb,
+                hdr.nvmb, geom_c, soa=False, frame_order=hdr.scan.comp_idx)
+            t = mark("assembly into blocks", t)
+            spec = pipeline.PipelineSpec.from_header(hdr)
+            qts = plan_tensors([hdr.quant_for(c).values for c in hdr.components], dev)
+            planes = [
+                idct_islow_plane.dequant_idct_islow_plane_soa(blocks_as_soa(c), q)
+                for c, q in zip(coefs, qts)]
+            t = mark("K5 x3 (with the quant tables' upload)", t)
+            up = [color_ops.upsample_nearest(p, *dec)[: spec.height, : spec.width]
+                  for p, dec in zip(planes, spec.comp_decs)]
+            rgb = color_ops.ycbcr_to_rgb_exact(*up)
+            t = mark("upsampling + colour (torch ops)", t)
+            rgb.cpu().numpy()
+            mark("D2H of RGB", t)
+        return {k: v / reps for k, v in split.items()}
+
+    split = pack_split(data1080, reps)
+    print(f"upload='pack' stages, 1080p 4:2:0 without restart markers, host clock with a "
+          f"sync after each stage, mean of {reps}  [{card}]:")
+    for stage, ms in split.items():
+        print(f"  {stage}: {ms} ms")
+
     for name, data in (("without restart markers", data1080), ("R=1", data1080r)):
         split = stage_split(data, reps)
         print(f"entropy='device' stages, 1080p 4:2:0 {name}, host clock with a "
@@ -497,34 +933,35 @@ def main() -> int:
         print(f"  sum: {sum(split.values())} ms")
     busy_share(data1080, card)
 
-    print(json.dumps({"kernels": [{
-        "name": "pixel_fused",
-        "route": "cuda",
-        "source": "jpeg_gpu_tpu_torch/csrc/pixel_fused.cu",
-        "replaces": "jpeg_gpu_tpu/ops/pixel_fused.py:237",
-        "launches": main_launches[0],
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "entropy_decode",
-        "route": "cuda",
-        "source": "jpeg_gpu_tpu_torch/csrc/entropy_decode.cu",
-        "replaces": "jpeg_gpu_tpu/ops/entropy_device.py:128",
-        "launches": main_launches[1],
-        "max_abs_err": k2_err,
-        "ms": k2_ms,
-        "plain_ms": k2_plain_ms,
-    }, {
-        "name": "specsync_scan",
-        "route": "cuda",
-        "source": "jpeg_gpu_tpu_torch/csrc/specsync_scan.cu",
-        "replaces": "jpeg_gpu_tpu/ops/specsync_device.py:98",
-        "launches": main_launches[2],
-        "max_abs_err": k3_err,
-        "ms": k3_ms,
-        "plain_ms": k3_plain_ms,
-    }]}))
+    def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None):
+        return {
+            "name": stem,
+            "route": "cuda",
+            "source": f"jpeg_gpu_tpu_torch/csrc/{stem}.cu",
+            "replaces": replaces,
+            "launches": main_launches[i],
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b["bound_ms"],
+            "bound_by": b["bound_by"],
+            "library_ms": library_ms,
+        }
+
+    print(json.dumps({"kernels": [
+        entry(0, "pixel_fused", "jpeg_gpu_tpu/ops/pixel_fused.py:237",
+              max_err, k_ms, p_ms, k1_bound),
+        entry(1, "entropy_decode", "jpeg_gpu_tpu/ops/entropy_device.py:128",
+              k2_err, k2_ms, k2_plain_ms, k2_bound),
+        entry(2, "specsync_scan", "jpeg_gpu_tpu/ops/specsync_device.py:98",
+              k3_err, k3_ms, k3_plain_ms, k3_bound),
+        entry(3, "pack_expand", "jpeg_gpu_tpu/ops/pack_device.py:42",
+              k4_err, k4_ms, k4_plain_ms, k4_bound),
+        entry(4, "idct_islow_plane", "jpeg_gpu_tpu/ops/idct_islow_pallas.py:54",
+              k5_err, k5_ms, k5_plain_ms, k5_bound),
+        entry(5, "idct_float", "jpeg_gpu_tpu/ops/idct_pallas.py:78",
+              k6_err, k6_ms, k6_plain_ms, k6_bound, k6_library_ms),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

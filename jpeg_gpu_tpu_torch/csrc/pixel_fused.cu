@@ -29,13 +29,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "idct_islow.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;    // luma blocks per CUDA block
 constexpr int kWinRows = 10;     // one chroma block row + a 1-sample halo
-
-constexpr int CONST_BITS = 13;
-constexpr int PASS1_BITS = 2;
 
 constexpr int SCALEBITS = 16;
 constexpr int ONE_HALF = 1 << (SCALEBITS - 1);
@@ -44,75 +43,9 @@ constexpr int FIX_0_34414 = 22554;
 constexpr int FIX_0_71414 = 46802;
 constexpr int FIX_1_77200 = 116130;
 
-__device__ __forceinline__ int descale(int x, int n) {
-  return (x + (1 << (n - 1))) >> n;
-}
-
-// One 8-point islow IDCT pass, in place (ops/idct_islow.py:_idct8).
-__device__ __forceinline__ void idct8(int (&c)[8], int bits) {
-  int z1 = (c[2] + c[6]) * 4433;
-  const int t2 = z1 - c[6] * 15137;
-  const int t3 = z1 + c[2] * 6270;
-  const int t0 = (c[0] + c[4]) << CONST_BITS;
-  const int t1 = (c[0] - c[4]) << CONST_BITS;
-  const int e0 = t0 + t3, e3 = t0 - t3, e1 = t1 + t2, e2 = t1 - t2;
-
-  z1 = c[7] + c[1];
-  int z2 = c[5] + c[3];
-  int z3 = c[7] + c[3];
-  int z4 = c[5] + c[1];
-  const int z5 = (z3 + z4) * 9633;
-  int o0 = c[7] * 2446;
-  int o1 = c[5] * 16819;
-  int o2 = c[3] * 25172;
-  int o3 = c[1] * 12299;
-  z1 = z1 * -7373;
-  z2 = z2 * -20995;
-  z3 = z3 * -16069 + z5;
-  z4 = z4 * -3196 + z5;
-  o0 += z1 + z3;
-  o1 += z2 + z4;
-  o2 += z2 + z3;
-  o3 += z1 + z4;
-
-  c[0] = descale(e0 + o3, bits);
-  c[1] = descale(e1 + o2, bits);
-  c[2] = descale(e2 + o1, bits);
-  c[3] = descale(e3 + o0, bits);
-  c[4] = descale(e3 - o0, bits);
-  c[5] = descale(e2 - o1, bits);
-  c[6] = descale(e1 - o2, bits);
-  c[7] = descale(e0 - o3, bits);
-}
-
-__device__ __forceinline__ int clamp255(int x) { return min(max(x, 0), 255); }
-
-// Dequantize one block's 64 coefficient planes (stride `plane` elements
-// apart) and turn it into clamped u8-range samples s[u * 8 + v].
-__device__ __forceinline__ void block_samples(const int16_t* __restrict__ src,
-                                              size_t plane, const int* q,
-                                              int (&s)[64]) {
-#pragma unroll
-  for (int j = 0; j < 64; ++j) s[j] = int(src[j * plane]) * q[j];
-#pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    int t[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) t[u] = s[u * 8 + v];
-    idct8(t, CONST_BITS - PASS1_BITS);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) s[u * 8 + v] = t[u];
-  }
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    int t[8];
-#pragma unroll
-    for (int v = 0; v < 8; ++v) t[v] = s[u * 8 + v];
-    idct8(t, CONST_BITS + PASS1_BITS + 3);
-#pragma unroll
-    for (int v = 0; v < 8; ++v) s[u * 8 + v] = clamp255(t[v] + 128);
-  }
-}
+// The islow IDCT of one block: csrc/idct_islow.cuh.
+using jgt::block_samples;
+using jgt::clamp255;
 
 // y: (N, SY, SX, 64, vbc, hbc); cb, cr: (N, 64, vbc, hbc) int16.
 // qty: (N, 64), qtc: (N, 2, 64) int32.  out: (N, height, width, 3) uint8.

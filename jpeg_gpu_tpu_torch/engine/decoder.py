@@ -8,7 +8,10 @@ The port of ``jpeg_gpu_tpu/engine/decoder.py``: the same decode surface --
 * :class:`TorchDecoder` -- entropy decode on the host, or on the device
   with ``entropy="device"`` (engine/device_entropy.py: K3 and K2), then the
   device pipeline (engine/pipeline.py) on a chosen torch device.  On a CUDA
-  device the RGB decode of the fused geometries runs the K1 kernel.
+  device the RGB decode of the fused geometries runs the K1 kernel; the
+  YUV stage, grayscale and the other geometries run K5 (exact) or K6
+  (``exact=False``) per component; ``upload="pack"`` ships the packed
+  (run, value) stream and expands it on the device (K4).
 
 Every ``decode`` returns numpy arrays, as the reference's does.
 """
@@ -28,6 +31,7 @@ from jpeg_gpu_tpu_torch.host.parser import ParsedJpeg, parse
 from jpeg_gpu_tpu_torch.info import JpegHeader
 from jpeg_gpu_tpu_torch.ops import color as color_ops
 from jpeg_gpu_tpu_torch.ops import idct_islow
+from jpeg_gpu_tpu_torch.utils.device import resolve_device
 from jpeg_gpu_tpu_torch.utils.logging import get_logger
 
 log = get_logger("engine")
@@ -77,6 +81,7 @@ class Decoder:
     """
 
     name = "base"
+    upload = "coefs"  # what a device decoder ships: "coefs" or "pack"
 
     def __init__(self, data: bytes, validate: bool = True, entropy: str = "auto"):
         self.data = data
@@ -148,7 +153,8 @@ class Decoder:
     def io_bytes(self, out: StageArg = OutputStage.RGB) -> dict:
         """Host<->device payload bytes for decode(out) in the current mode.
 
-        ``upload`` is the per-frame payload (coefficients, or the entropy
+        ``upload`` is the per-frame payload (coefficients, the packed
+        stream with its block index for ``upload="pack"``, or the entropy
         bits for ``entropy="device"``), ``download`` the stage's output;
         Huffman and quant table tensors are reported apart as ``tables``.
         """
@@ -170,6 +176,11 @@ class Decoder:
         elif self.entropy == "device":
             mode, upload, entropy_tables = self._bits_payload(coef_b)
             tables += entropy_tables
+        elif self.upload == "pack":
+            mode = "pack"
+            scan = self._entropy(want_pack=True)
+            idx_b = sum(i.nbytes for i in (scan.pack_index or []))
+            upload = (len(scan.pack) * 2 if scan.pack is not None else 0) + idx_b
         else:
             upload = coef_b
         return {
@@ -285,13 +296,18 @@ class HostDecoder(Decoder):
 class TorchDecoder(Decoder):
     """Entropy decode + the device pipeline on ``device``.
 
-    ``device`` is any torch device; None picks "cuda" when a card is
-    present, else "cpu".  ``entropy="device"`` runs the Huffman decode on
+    ``device`` is any torch device; None means "cuda", and a machine
+    without a card then raises: the CPU is used only when the caller asks
+    for ``device="cpu"``.  ``entropy="device"`` runs the Huffman decode on
     the device too (K3 index scan for streams without restart markers, K2
     decode); the other entropy modes decode on the host and upload
-    coefficients.  ``on_error="zero"`` (device entropy only) turns flagged
-    segments into flat gray blocks instead of raising.  On the CPU every
-    kernel runs its plain version, on a CUDA device the kernel itself.
+    coefficients, or with ``upload="pack"`` the packed (run, value) stream,
+    which the device expands (K4) before the unfused pipeline.
+    ``exact=False`` takes the float IDCT (K6) and the float colour matrix
+    instead of the bit-exact integer path.  ``on_error="zero"`` (device
+    entropy only) turns flagged segments into flat gray blocks instead of
+    raising.  On the CPU every kernel runs its plain version, on a CUDA
+    device the kernel itself.
     """
 
     name = "torch"
@@ -310,23 +326,11 @@ class TorchDecoder(Decoder):
         super().__init__(data, validate=validate, entropy=entropy)
         if entropy not in ("auto", "native", "python", "device"):
             raise ValueError(f"unknown entropy decoder {entropy!r}")
-        if upload == "pack":
-            raise NotImplementedError(
-                "upload='pack' is not ported yet: see ROADMAP.md, port "
-                "slice 4 (K4 PACK expansion)"
-            )
-        if upload != "coefs":
+        if upload not in ("coefs", "pack"):
             raise ValueError(f"upload must be 'coefs' or 'pack', got {upload!r}")
-        if not exact:
-            raise NotImplementedError(
-                "exact=False is not ported yet: see ROADMAP.md, port "
-                "slice 6 (K6 float IDCT fast path)"
-            )
         if on_error not in ("raise", "zero"):
             raise ValueError(f"on_error must be 'raise' or 'zero', got {on_error!r}")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, "TorchDecoder")
         self.exact = exact
         self.upload = upload
         self.upsample = upsample
@@ -341,7 +345,7 @@ class TorchDecoder(Decoder):
         stage = _stage(out)
         if self.entropy == "device" and stage != OutputStage.PACK:
             return None  # the Huffman decode runs on the device
-        if stage == OutputStage.PACK:
+        if stage == OutputStage.PACK or self.upload == "pack":
             return self._entropy(want_pack=True)
         if stage == OutputStage.RGB:
             spec = pipeline.PipelineSpec.from_header(
@@ -382,6 +386,16 @@ class TorchDecoder(Decoder):
             hdr, exact=self.exact, upsample=self.upsample
         )
         qtables = [hdr.quant_for(c).values.astype(np.int32) for c in hdr.components]
+        if self.upload == "pack":
+            # Minimal-upload path: ship the packed (run, value) stream,
+            # expand it to dense coefficients on the device (K4), then the
+            # unfused pipeline, as the reference does.
+            from jpeg_gpu_tpu_torch.engine.device_entropy import expand_pack_device
+            from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
+
+            scan = self._entropy(want_pack=True)
+            coefs = expand_pack_device(self._parse(), scan, self.device)
+            return pipeline.run(spec, stage, coefs, plan_tensors(qtables, self.device))
         fgeom = pipeline.fused_rgb_geometry(spec) if stage == OutputStage.RGB else None
         if fgeom is not None:
             soa = self._entropy_soa()

@@ -4,7 +4,9 @@ The port of ``jpeg_gpu_tpu/engine/device_entropy.py``.  The host only
 parses markers and destuffs and packs the entropy bits (host/segments.py);
 the device runs the index scan for streams without restart markers (K3),
 the Huffman decode (K2), the DC-base repair and the assembly into the
-coefficient layouts the pixel pipeline consumes.
+coefficient layouts the pixel pipeline consumes.  For the PACK upload the
+host does the Huffman work and the device expands the packed (run, value)
+stream (K4, :func:`expand_pack_device`).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from jpeg_gpu_tpu_torch.host.segments import (
 from jpeg_gpu_tpu_torch.ops import entropy_device
 from jpeg_gpu_tpu_torch.ops import specsync_device
 from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
+from jpeg_gpu_tpu_torch.utils.device import resolve_device
 from jpeg_gpu_tpu_torch.utils.logging import get_logger
 
 log = get_logger("engine")
@@ -94,13 +97,16 @@ def _spec_decode_try(parsed: ParsedJpeg, device):
 
 def entropy_decode_device(
     parsed: ParsedJpeg,
-    device="cpu",
+    device=None,
     check_errors: bool = True,
     soa: bool = False,
     on_error: str = "raise",
     specsync: bool = True,
 ) -> DeviceEntropyResult:
     """Decode the scan's entropy bits on ``device`` (K2 on a CUDA device).
+
+    ``device=None`` means "cuda" and raises without a card; the CPU, with
+    the kernels' plain versions, runs only for ``device="cpu"``.
 
     ``soa=True`` assembles parity-split coefficient planes (K1's layout)
     instead of (vb, hb, 8, 8) blocks.
@@ -117,7 +123,7 @@ def entropy_decode_device(
     """
     if on_error not in ("raise", "zero"):
         raise ValueError(f"on_error must be 'raise' or 'zero', got {on_error!r}")
-    device = torch.device(device)
+    device = resolve_device(device, "entropy_decode_device")
     header = parsed.header
     comp_geometry = tuple(
         (header.components[i].hsamp, header.components[i].vsamp)
@@ -180,23 +186,60 @@ def entropy_decode_device(
     return DeviceEntropyResult(coefs=coefs, err=err, specsync_stats=spec_stats)
 
 
+def expand_pack_device(parsed: ParsedJpeg, scan, device=None) -> Tuple[torch.Tensor, ...]:
+    """PACK-upload path: ship (run, value) streams, expand them to dense
+    coefficients on ``device`` (K4 on a CUDA device).
+
+    ``scan`` is a host ScanResult made with ``want_pack=True``.  Covers
+    streams without restart markers (the host did the Huffman work) and
+    cuts the host->device bytes to 2 per non-zero coefficient.  Returns
+    per-component (vb, hb, 8, 8) int16 tensors in frame order.
+    ``device=None`` means "cuda" and raises without a card.
+    """
+    from jpeg_gpu_tpu_torch.host.pack_plan import build_pack_plan
+    from jpeg_gpu_tpu_torch.ops import pack_device
+
+    device = resolve_device(device, "expand_pack_device")
+    header = parsed.header
+    plan = build_pack_plan(parsed, scan)
+    streams, = plan_tensors((plan.streams,), device)
+    kernel_out = pack_device.expand_pack_device(streams, plan.blocks_per_segment)
+    comp_geometry = tuple(
+        (header.components[i].hsamp, header.components[i].vsamp)
+        for i in header.scan.comp_idx
+    )
+    return entropy_device.assemble_components(
+        kernel_out,
+        n_segments=plan.n_segments,
+        mcus_per_segment=plan.mcus_per_segment,
+        n_mcus=header.n_mcus,
+        nhmb=header.nhmb,
+        nvmb=header.nvmb,
+        comp_geometry=comp_geometry,
+        soa=False,
+        frame_order=header.scan.comp_idx,
+    )
+
+
 def decode_image_device(
     parsed: ParsedJpeg,
     stage="rgb",
     exact: bool = True,
     upsample: str = "nearest",
     on_error: str = "raise",
-    device="cpu",
+    device=None,
     stats: Optional[dict] = None,
 ):
     """Fully on-device decode: entropy bits -> pixels, with no intermediate
     copy back to the host.  Returns tensors on ``device`` (the RGB stage a
     (H, W, 3) uint8 tensor, the other stages tuples).  A ``stats`` dict
     receives the device index scan's ``specsync_stats`` (None when the scan
-    did not run or fell back)."""
+    did not run or fell back).  ``device=None`` means "cuda" and raises
+    without a card."""
     from jpeg_gpu_tpu_torch.engine import pipeline
     from jpeg_gpu_tpu_torch.engine.stages import OutputStage
 
+    device = resolve_device(device, "decode_image_device")
     header = parsed.header
     spec = pipeline.PipelineSpec.from_header(header, exact=exact, upsample=upsample)
     stage = stage if isinstance(stage, OutputStage) else OutputStage(stage)

@@ -4,8 +4,10 @@ The port of ``jpeg_gpu_tpu/engine/pipeline.py``.  Every function takes
 tensors that already sit on the target device (see :func:`to_torch_inputs`)
 and returns tensors on that device.  The fused RGB path
 (:func:`decode_rgb_soa`) goes through the K1 kernel; the other geometries
-and stage cuts run as plain PyTorch ops, as the reference runs them
-through XLA.  Every op accepts leading batch dimensions.
+and the YUV stage go through one standalone IDCT kernel call per component
+-- K5 (islow, exact) or K6 (float, ``exact=False``) -- followed by plain
+PyTorch upsampling and colour ops, as the reference leaves those to XLA.
+Every op accepts leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import torch
 from jpeg_gpu_tpu_torch.engine.stages import OutputStage
 from jpeg_gpu_tpu_torch.info import JpegHeader
 from jpeg_gpu_tpu_torch.ops import color as color_ops
-from jpeg_gpu_tpu_torch.ops import idct_islow
+from jpeg_gpu_tpu_torch.ops import idct_float
+from jpeg_gpu_tpu_torch.ops import idct_islow_plane
 from jpeg_gpu_tpu_torch.ops import pixel_fused
+from jpeg_gpu_tpu_torch.ops.block_plane import blocks_as_soa
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +36,7 @@ class PipelineSpec:
     comp_sizes: Tuple[Tuple[int, int], ...]  # per comp (width, height) in samples
     comp_decs: Tuple[Tuple[int, int], ...]   # per comp (xdec, ydec)
     comp_samps: Optional[Tuple[Tuple[int, int], ...]] = None  # (hsamp, vsamp)
-    exact: bool = True                        # islow + integer colour
+    exact: bool = True                        # islow + integer colour, or float
     use_kernel: bool = True                   # fused K1 kernel on the RGB path
     upsample: str = "nearest"                 # "nearest" or "fancy" (libjpeg)
 
@@ -83,20 +87,17 @@ def to_torch_inputs(
     return cts, qts
 
 
-def _exact_only(spec: PipelineSpec) -> None:
-    if not spec.exact:
-        raise NotImplementedError(
-            "exact=False (float IDCT and colour) is not ported yet: see "
-            "ROADMAP.md, port queue item 'float fast path (K6)'"
-        )
-
-
 def _sample_planes(spec: PipelineSpec, coefs, qtables):
-    """Per-component full (MCU-aligned) sample planes, uint8."""
-    _exact_only(spec)
+    """Per-component full (MCU-aligned) sample planes, uint8: K5 for the
+    exact path, K6 for the float one.  The (..., vb, hb, 8, 8) blocks go in
+    as strided views of coefficient planes, without a copy."""
+    idct = (
+        idct_islow_plane.dequant_idct_islow_plane_soa
+        if spec.exact
+        else idct_float.dequant_idct_float_plane_soa
+    )
     return [
-        idct_islow.dequant_idct_islow_plane(coefs[ci], qtables[ci])
-        for ci in range(spec.ncomps)
+        idct(blocks_as_soa(coefs[ci]), qtables[ci]) for ci in range(spec.ncomps)
     ]
 
 
@@ -128,7 +129,9 @@ def decode_rgb(spec: PipelineSpec, coefs, qtables):
         else:
             p = color_ops.upsample_nearest(p, xdec, ydec)
         up.append(p[..., :h, :w])
-    return color_ops.ycbcr_to_rgb_exact(*up)
+    if spec.exact:
+        return color_ops.ycbcr_to_rgb_exact(*up)
+    return color_ops.ycbcr_to_rgb_float(*up)
 
 
 def fused_rgb_geometry(spec: PipelineSpec):

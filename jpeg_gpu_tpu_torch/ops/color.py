@@ -6,10 +6,9 @@ The same integer arithmetic as ``jpeg_gpu_tpu/ops/color.py``:
   ``do_fancy_upsampling=FALSE``);
 * :func:`upsample_fancy` and the ``*_padded`` forms -- libjpeg's triangle
   filters, bit-exact, with edge samples replicated at the true plane edge;
-* :func:`ycbcr_to_rgb_exact` -- libjpeg's fixed-point colour converter.
-
-The float converter of the reference is not ported (``exact=False`` is not
-supported by this package yet).
+* :func:`ycbcr_to_rgb_exact` -- libjpeg's fixed-point colour converter;
+* :func:`ycbcr_to_rgb_float` -- the float JFIF matrix of the ``exact=False``
+  fast path.
 """
 
 from __future__ import annotations
@@ -137,3 +136,17 @@ def ycbcr_to_rgb_exact(
     g = yi + ((-FIX_0_34414 * cbi + (-FIX_0_71414 * cri + ONE_HALF)) >> SCALEBITS)
     rgb = torch.stack([r, g, b], dim=-1)
     return rgb.clamp(0, 255).to(torch.uint8)
+
+
+def ycbcr_to_rgb_float(
+    y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
+) -> torch.Tensor:
+    """Float JFIF conversion (fast path): round half to even, then clamp."""
+    yf = y.to(torch.float32)
+    cbf = cb.to(torch.float32) - 128.0
+    crf = cr.to(torch.float32) - 128.0
+    r = yf + 1.402 * crf
+    g = yf - 0.34414 * cbf - 0.71414 * crf
+    b = yf + 1.772 * cbf
+    rgb = torch.stack([r, g, b], dim=-1)
+    return torch.round(rgb).clamp(0.0, 255.0).to(torch.uint8)

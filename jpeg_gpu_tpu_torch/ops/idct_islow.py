@@ -8,8 +8,9 @@ CONST_BITS+PASS1_BITS+3, so decoded samples are bit-identical to libjpeg's
 
 Everything runs on int32 tensors on any device.  ``>>`` on a signed torch
 integer tensor is an arithmetic shift, as jnp's is, and int32 products wrap
-the same way.  These are the plain versions the CUDA kernel in
-``csrc/pixel_fused.cu`` is checked against.
+the same way.  These are the plain versions that the CUDA kernels sharing
+``csrc/idct_islow.cuh`` (K1 ``pixel_fused.cu``, K5 ``idct_islow_plane.cu``)
+are checked against.
 """
 
 from __future__ import annotations

@@ -150,7 +150,134 @@ def dataclass_tuple(c):
             c.hblocks, c.vblocks, c.xdec, c.ydec)
 
 
-@pytest.mark.parametrize("kw", [{"upload": "pack"}, {"exact": False}])
-def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        jt.TorchDecoder(_enc("4:2:0"), device="cpu", **kw)
+def _parts(r):
+    """The arrays of a stage result (planes, coefficients, or the image)."""
+    if isinstance(r, np.ndarray):
+        return [r]
+    return getattr(r, "planes", None) or r.coefs
+
+
+def _maxdiff(a, b):
+    return max(int(np.abs(x.astype(int) - y.astype(int)).max())
+               for x, y in zip(_parts(a), _parts(b)))
+
+
+@pytest.mark.parametrize("stage", ["quant", "dct", "yuv", "rgb"])
+@pytest.mark.parametrize("mode", ["4:2:0", "4:4:4", "mono"])
+def test_pack_upload_matches_reference(mode, stage):
+    """upload="pack": host Huffman -> packed stream -> K4 (its plain version
+    here) -> the unfused pipeline; tolerance 0 at every stage cut."""
+    data = _enc(mode, restart_interval=ALL_MODES.index(mode) % 3)
+    got = jt.decode(data, out=stage, device="cpu", upload="pack")
+    ref = jr.decode(data, out=stage, impl="tpu", upload="pack")
+    assert len(_parts(got)) == len(_parts(ref))
+    for a, b in zip(_parts(got), _parts(ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(_parts(got), _parts(jt.decode(data, out=stage, device="cpu"))):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("upsample", ["nearest", "fancy"])
+def test_pack_upload_python_entropy_and_fancy(upsample):
+    data = _enc("4:2:2", 21, 37)
+    got = jt.decode(data, device="cpu", upload="pack", entropy="python", upsample=upsample)
+    np.testing.assert_array_equal(
+        got, jr.decode(data, impl="tpu", upload="pack", upsample=upsample))
+
+
+@pytest.mark.parametrize("stage", ["yuv", "rgb"])
+@pytest.mark.parametrize("mode", ["4:2:0", "4:4:4", "mono", "4:1:1"])
+def test_float_path_matches_reference(mode, stage):
+    """exact=False (K6's plain version + the float colour matrix): within 1
+    of the reference on planes and 2 on RGB (float sums run in another
+    order in the two packages), and within 4 of the exact decode."""
+    data = _enc(mode)
+    got = jt.decode(data, out=stage, device="cpu", exact=False, upsample="fancy")
+    ref = jr.decode(data, out=stage, impl="tpu", exact=False, upsample="fancy")
+    exact = jt.decode(data, out=stage, device="cpu", upsample="fancy")
+    for a, b in zip(_parts(got), _parts(ref)):
+        assert a.dtype == np.uint8 and a.shape == b.shape
+    assert _maxdiff(got, ref) <= (2 if stage == "rgb" else 1)
+    assert _maxdiff(got, exact) <= 4
+
+
+def test_float_path_with_pack_upload():
+    data = _enc("4:2:0", restart_interval=2)
+    got = jt.decode(data, device="cpu", exact=False, upload="pack")
+    assert _maxdiff(got, jr.decode(data, impl="tpu", exact=False, upload="pack")) <= 2
+    np.testing.assert_array_equal(got, jt.decode(data, device="cpu", exact=False))
+
+
+@pytest.mark.parametrize("mode", ["h1v4", "h2v4"])
+@pytest.mark.parametrize("upsample", ["nearest", "fancy"])
+def test_unfused_three_component_geometry(mode, upsample):
+    """Luma sampled 4 high is no geometry of the fused kernel: the RGB
+    decode runs one plane IDCT per component, then upsampling and colour."""
+    img = corpus.synthetic_rgb(40, 48, seed=16)
+    data = corpus.own_jpeg(img, subsampling=mode, quality=82, restart_interval=2).data
+    got = jt.decode(data, device="cpu", upsample=upsample)
+    np.testing.assert_array_equal(got, jr.decode(data, impl="tpu", upsample=upsample))
+
+
+@pytest.mark.parametrize("mode", ["4:2:0", "mono"])
+@pytest.mark.parametrize("stage", ["rgb", "quant"])
+def test_io_bytes_pack_equals_reference(mode, stage):
+    data = _enc(mode, restart_interval=1)
+    got = jt.get_decoder(data, device="cpu", upload="pack").io_bytes(stage)
+    assert got == jr.get_decoder(data, impl="tpu", upload="pack").io_bytes(stage)
+    assert got["payload"] == "pack"
+    dense = jt.get_decoder(data, device="cpu").io_bytes(stage)
+    assert dense["payload"] == "host" and dense["download"] == got["download"]
+
+
+def test_host_entropy_returns_pack_scan():
+    dec = jt.get_decoder(_enc("4:2:0"), device="cpu", upload="pack")
+    scan = dec.host_entropy("rgb")
+    assert scan.pack is not None and scan.pack_index is not None
+    assert jt.get_decoder(_enc("4:2:0"), device="cpu").host_entropy("yuv").pack is None
+
+
+def test_bad_upload_rejected():
+    with pytest.raises(ValueError, match="upload"):
+        jt.TorchDecoder(_enc("4:2:0"), device="cpu", upload="bits")
+
+
+def test_default_device_is_the_card():
+    """device=None means "cuda": without a card the decoder raises instead
+    of decoding on the CPU."""
+    import torch
+
+    data = _enc("4:2:0")
+    if torch.cuda.is_available():
+        assert jt.TorchDecoder(data).device.type == "cuda"
+        return
+    for make in (lambda: jt.TorchDecoder(data), lambda: jt.decode(data),
+                 lambda: jt.get_decoder(data, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+@pytest.mark.parametrize("name", [
+    "entropy_decode_device", "decode_image_device", "expand_pack_device"])
+def test_engine_default_device_is_the_card(name):
+    """The engine's own entry points follow the decoder: no device named
+    means the card, and without one they raise before decoding anything."""
+    import torch
+
+    from jpeg_gpu_tpu_torch.engine import device_entropy
+    from jpeg_gpu_tpu_torch.host import entropy as host_entropy
+    from jpeg_gpu_tpu_torch.host.parser import parse
+
+    parsed = parse(_enc("4:2:0", restart_interval=2))
+    args = (parsed,)
+    if name == "expand_pack_device":
+        args += (host_entropy.decode_scan(parsed, want_pack=True),)
+    fn = getattr(device_entropy, name)
+    if torch.cuda.is_available():
+        out = fn(*args)
+        first = out.coefs[0] if name == "entropy_decode_device" else out[0]
+        assert first.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(*args)

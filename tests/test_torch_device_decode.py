@@ -71,6 +71,31 @@ def test_stage_cuts(stage):
             np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("restart", [0, 1])
+@pytest.mark.parametrize("stage", ["yuv", "rgb"])
+def test_float_path_on_device_entropy(stage, restart):
+    """entropy="device" with exact=False: K2 (and K3) feed K6's plain
+    version; within 1 of the reference on planes and 2 on RGB, and equal to
+    the port's host-entropy float decode."""
+    data = _enc(24, 40, seed=16, restart=restart)
+    got = jt.decode(data, out=stage, device="cpu", entropy="device", exact=False)
+    ref = jr.decode(data, out=stage, impl="tpu", entropy="device", exact=False)
+    host = jt.decode(data, out=stage, device="cpu", exact=False)
+    parts = lambda r: [r] if isinstance(r, np.ndarray) else r.planes  # noqa: E731
+    for a, b, c in zip(parts(got), parts(ref), parts(host)):
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= (2 if stage == "rgb" else 1)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_gray_rgb_on_device_entropy():
+    """Grayscale RGB: K2 -> one plane IDCT (K5) -> the value in three channels."""
+    img = corpus.synthetic_rgb(30, 44, seed=17)[..., 1].copy()
+    data = corpus.own_jpeg(img, quality=88, restart_interval=1).data
+    got = jt.decode(data, device="cpu", entropy="device")
+    np.testing.assert_array_equal(got, jr.decode(data, impl="tpu", entropy="device"))
+    assert (got[..., 0] == got[..., 2]).all()
+
+
 def test_salvage_zero_matches_reference():
     data = bytearray(_enc(16, 48, seed=14, restart=1))
     s, e = parse(bytes(data)).segments[1]

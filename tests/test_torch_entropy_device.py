@@ -117,7 +117,7 @@ def test_engine_matches_host_entropy(mode, soa):
     restart = ALL_MODES.index(mode) % 3
     data = _enc(mode, 33, 41, seed=6, restart=restart)
     parsed = tparse(data)
-    res = tde.entropy_decode_device(parsed, soa=soa)
+    res = tde.entropy_decode_device(parsed, device="cpu", soa=soa)
     if soa:
         ref = t_native.decode_scan(parsed, soa=True).coefs
     else:
@@ -131,7 +131,7 @@ def test_engine_matches_host_entropy(mode, soa):
 
 def _error_names(data, **kw):
     names = []
-    for call in (lambda: tde.entropy_decode_device(tparse(data), **kw),
+    for call in (lambda: tde.entropy_decode_device(tparse(data), device="cpu", **kw),
                  lambda: jde.entropy_decode_device(jparse(data), interpret=True, **kw)):
         with pytest.raises(Exception) as info:
             call()
@@ -162,24 +162,24 @@ def test_salvage_zero_matches_jax():
     block equals the clean decode, and the whole result equals JAX's."""
     clean = _enc("mono", 16, 48, seed=3, restart=1, quality=85)
     data = _ones_over_segment(clean, 1)
-    got = tde.entropy_decode_device(tparse(data), on_error="zero").coefs[0].numpy()
+    got = tde.entropy_decode_device(tparse(data), device="cpu", on_error="zero").coefs[0].numpy()
     ref = jde.entropy_decode_device(jparse(data), interpret=True, on_error="zero")
     np.testing.assert_array_equal(got, np.asarray(ref.coefs[0]))
-    want = tde.entropy_decode_device(tparse(clean)).coefs[0].numpy()
+    want = tde.entropy_decode_device(tparse(clean), device="cpu").coefs[0].numpy()
     assert (got[0, 1] == 0).all()
     mask = np.ones(got.shape, bool)
     mask[0, 1] = False
     np.testing.assert_array_equal(got[mask], want[mask])
     with pytest.raises(JpegFormatError):
-        tde.entropy_decode_device(tparse(data))
+        tde.entropy_decode_device(tparse(data), device="cpu")
 
 
 def test_salvage_keeps_valid_short_last_segment():
     """35 MCUs at restart interval 2: the short last segment's padded tail
     raises no flag, so salvage keeps it."""
     data = _enc("mono", 40, 56, seed=5, restart=2, quality=85)
-    clean = tde.entropy_decode_device(tparse(data))
-    salvaged = tde.entropy_decode_device(tparse(data), on_error="zero")
+    clean = tde.entropy_decode_device(tparse(data), device="cpu")
+    salvaged = tde.entropy_decode_device(tparse(data), device="cpu", on_error="zero")
     ref = jde.entropy_decode_device(jparse(data), interpret=True, on_error="zero")
     np.testing.assert_array_equal(salvaged.coefs[0].numpy(), clean.coefs[0].numpy())
     np.testing.assert_array_equal(salvaged.coefs[0].numpy(), np.asarray(ref.coefs[0]))

@@ -14,12 +14,14 @@ import pytest
 
 from jpeg_gpu_tpu.host import entropy as r_entropy
 from jpeg_gpu_tpu.host import entropy_native as r_native
+from jpeg_gpu_tpu.host import pack_plan as r_pack_plan
 from jpeg_gpu_tpu.host import segments as r_segments
 from jpeg_gpu_tpu.host import specsync as r_specsync
 from jpeg_gpu_tpu.host.parser import parse as r_parse
 from jpeg_gpu_tpu.testing import corpus as r_corpus
 from jpeg_gpu_tpu_torch.host import entropy as t_entropy
 from jpeg_gpu_tpu_torch.host import entropy_native as t_native
+from jpeg_gpu_tpu_torch.host import pack_plan as t_pack_plan
 from jpeg_gpu_tpu_torch.host import segments as t_segments
 from jpeg_gpu_tpu_torch.host import specsync as t_specsync
 from jpeg_gpu_tpu_torch.host.parser import parse as t_parse
@@ -94,6 +96,23 @@ def test_pack_streams_equal():
     a = t_native.decode_scan(t_parse(enc.data), want_pack=True)
     b = r_entropy.decode_scan(r_parse(enc.data), want_pack=True)
     np.testing.assert_array_equal(a.pack, b.pack)
+
+
+@pytest.mark.parametrize("mode", ["mono", "4:2:0", "4:4:4", "4:1:1"])
+@pytest.mark.parametrize("k", [0, 3])
+def test_build_pack_plan_equal(mode, k):
+    """The copied pack planner lays out the same lanes as the original, from
+    the default split and from a forced number of MCUs per lane."""
+    img = _image(mode, 40, 56, seed=12)
+    sub = "4:2:0" if mode == "mono" else mode
+    data = t_corpus.own_jpeg(img, subsampling=sub, restart_interval=2).data
+    tp, rp = t_parse(data), r_parse(data)
+    a = t_pack_plan.build_pack_plan(tp, t_native.decode_scan(tp, want_pack=True), k)
+    b = r_pack_plan.build_pack_plan(rp, r_entropy.decode_scan(rp, want_pack=True), k)
+    np.testing.assert_array_equal(a.streams, b.streams)
+    assert a.streams.dtype == np.int32 and a.streams.shape[2:] == (8, 128)
+    assert (a.n_segments, a.mcus_per_segment, a.blocks_per_segment, a.packed_entries) == (
+        b.n_segments, b.mcus_per_segment, b.blocks_per_segment, b.packed_entries)
 
 
 def test_length_limit_case_that_hangs_the_reference():

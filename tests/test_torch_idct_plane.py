@@ -1,0 +1,123 @@
+"""K5 (SoA coefficient planes -> islow IDCT -> raster plane) vs the JAX reference.
+
+The same numpy coefficients, drawn from a seed, go through the JAX Pallas
+kernel ``idct_islow_pallas.dequant_idct_islow_plane_soa`` (interpret mode on
+the CPU), the JAX unfused ``dequant_idct_islow_plane`` and the port's plain
+version of K5; tolerance 0 (integer arithmetic).  On the CPU the port's
+wrapper runs the plain version; the CUDA kernel itself is held to the plain
+version by the ``gpu``-marked tests and by ``chip_smoke.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from jpeg_gpu_tpu.ops import idct_islow as jislow
+from jpeg_gpu_tpu.ops import idct_islow_pallas as jplane
+from jpeg_gpu_tpu_torch.ops import block_plane
+from jpeg_gpu_tpu_torch.ops import idct_islow as tislow
+from jpeg_gpu_tpu_torch.ops import idct_islow_plane as tplane
+from jpeg_gpu_tpu_torch.ops.pixel_fused import blocks_to_soa
+
+
+def _case(seed, shape, lim=300):
+    rng = np.random.default_rng(seed)
+    coefs = rng.integers(-lim, lim + 1, size=shape + (8, 8)).astype(np.int16)
+    q = rng.integers(1, 64, size=(8, 8)).astype(np.int32)
+    return coefs, q
+
+
+@pytest.mark.parametrize("seed,shape", [(0, (8, 6)), (1, (2, 8, 3))])
+def test_plain_vs_jax_kernel_and_unfused(seed, shape):
+    coefs, q = _case(seed, shape)
+    soa = blocks_to_soa(torch.from_numpy(coefs))
+    got = tplane.dequant_idct_islow_plane_soa(soa, torch.from_numpy(q)).numpy()
+    kernel = np.asarray(jplane.dequant_idct_islow_plane_soa(
+        jplane.blocks_to_soa(jnp.asarray(coefs)), jnp.asarray(q)))
+    unfused = np.asarray(jislow.dequant_idct_islow_plane(jnp.asarray(coefs), jnp.asarray(q)))
+    assert got.dtype == np.uint8 and got.shape == shape[:-2] + (shape[-2] * 8, shape[-1] * 8)
+    np.testing.assert_array_equal(got, kernel)
+    np.testing.assert_array_equal(got, unfused)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (17, 33), (2, 3, 5), (2, 2, 1, 7)])
+@pytest.mark.parametrize("view", [False, True])
+def test_odd_grids_vs_unfused_port(shape, view):
+    """Any vb, hb >= 1 and any leading axes; a strided blocks_as_soa view
+    gives the same plane as contiguous planes."""
+    coefs, q = _case(2, shape, lim=1500)
+    c = torch.from_numpy(coefs)
+    soa = block_plane.blocks_as_soa(c) if view else blocks_to_soa(c)
+    assert not view or soa.data_ptr() == c.data_ptr()
+    got = tplane.dequant_idct_islow_plane_soa(soa, torch.from_numpy(q.reshape(64)))
+    assert torch.equal(got, tislow.dequant_idct_islow_plane(c, torch.from_numpy(q)))
+
+
+def test_one_call_per_component_table():
+    """A table per component is a call per component, as the engine makes
+    them: slices of one block tensor go in as views."""
+    coefs, _ = _case(3, (3, 4, 5))
+    qs = np.random.default_rng(4).integers(1, 99, size=(3, 64)).astype(np.int32)
+    c = torch.from_numpy(coefs)
+    for i in range(3):
+        soa = block_plane.blocks_as_soa(c[i])
+        assert soa.data_ptr() == c[i].data_ptr()
+        got = tplane.dequant_idct_islow_plane_soa(soa, torch.from_numpy(qs[i]))
+        want = tislow.dequant_idct_islow_plane(c[i], torch.from_numpy(qs[i]))
+        assert torch.equal(got, want)
+
+
+def test_soa_views_round_trip():
+    coefs, _ = _case(5, (2, 3, 4))
+    c = torch.from_numpy(coefs)
+    view = block_plane.blocks_as_soa(c)
+    assert view.data_ptr() == c.data_ptr() and view.shape == (2, 64, 3, 4)
+    assert torch.equal(view, blocks_to_soa(c))
+    assert torch.equal(block_plane.soa_as_blocks(view), c)
+    assert torch.equal(block_plane.soa_as_blocks(blocks_to_soa(c)), c)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape", "qtable", "empty"])
+def test_wrapper_rejects_bad_arguments(bad):
+    soa = torch.zeros((2, 64, 3, 4), dtype=torch.int16)
+    q = torch.ones(64, dtype=torch.int32)
+    if bad == "dtype":
+        with pytest.raises(TypeError):
+            tplane.dequant_idct_islow_plane_soa(soa.to(torch.int32), q)
+    elif bad == "shape":
+        with pytest.raises(ValueError):
+            tplane.dequant_idct_islow_plane_soa(soa[:, :63], q)
+    elif bad == "qtable":
+        with pytest.raises(ValueError):
+            tplane.dequant_idct_islow_plane_soa(soa, torch.ones(2 * 64, dtype=torch.int32))
+    else:
+        with pytest.raises(ValueError):
+            tplane.dequant_idct_islow_plane_soa(soa[:, :, :0], q)
+
+
+def test_wrapper_has_no_fallback_for_other_devices():
+    """Only a CPU tensor takes the plain version; any other device launches
+    a kernel or raises."""
+    soa = torch.zeros((64, 2, 2), dtype=torch.int16, device="meta")
+    with pytest.raises(RuntimeError):
+        tplane.dequant_idct_islow_plane_soa(soa, torch.ones(64, dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (3, 5), (17, 33), (3, 136, 240)])
+@pytest.mark.parametrize("layout", ["soa", "view"])
+def test_kernel_vs_plain_on_gpu(shape, layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K5 kernel has no CPU mode")
+    coefs, q = _case(6, shape, lim=1500)
+    c = torch.from_numpy(coefs).cuda()
+    qt = torch.from_numpy(q).cuda()
+    soa = blocks_to_soa(c) if layout == "soa" else block_plane.blocks_as_soa(c)
+    before = tplane.launches
+    got = tplane.dequant_idct_islow_plane_soa(soa, qt)
+    ref = tplane.dequant_idct_islow_plane_soa_reference(soa, qt)
+    torch.cuda.synchronize()
+    assert tplane.launches == before + 1
+    assert torch.equal(got, ref)

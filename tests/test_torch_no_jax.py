@@ -21,7 +21,7 @@ from jpeg_gpu_tpu_torch.engine import pipeline
 from jpeg_gpu_tpu_torch.ops import pixel_fused
 from jpeg_gpu_tpu_torch.testing import corpus
 enc = corpus.own_jpeg(corpus.synthetic_rgb(20, 30, seed=1), "4:2:0")
-rgb = jt.decode(enc.data, device="cpu", upsample="{upsample}", entropy="{entropy}")
+rgb = jt.decode(enc.data, device="cpu", upsample="{upsample}", entropy="{entropy}", **{extra})
 assert rgb.shape == (20, 30, 3), rgb.shape
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jpeg_gpu_tpu.")))
 print("LEAKED", leaked)
@@ -29,14 +29,16 @@ assert not leaked, leaked
 """
 
 
-@pytest.mark.parametrize("upsample,entropy", [("nearest", "auto"), ("fancy", "python"),
-                                              ("fancy", "device")])
-def test_port_imports_no_jax(upsample, entropy):
+@pytest.mark.parametrize("upsample,entropy,extra", [
+    ("nearest", "auto", {}), ("fancy", "python", {}), ("fancy", "device", {}),
+    ("nearest", "auto", {"upload": "pack"}), ("fancy", "auto", {"exact": False}),
+])
+def test_port_imports_no_jax(upsample, entropy, extra):
     # One intra-op thread: the plain kernel versions run many tiny ops, and
     # this process shares the cores with the other test workers.
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
-        [sys.executable, "-c", SCRIPT.format(upsample=upsample, entropy=entropy)],
+        [sys.executable, "-c", SCRIPT.format(upsample=upsample, entropy=entropy, extra=extra)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

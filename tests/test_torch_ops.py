@@ -114,3 +114,16 @@ def test_ycbcr_to_rgb_exact():
     got = tcolor.ycbcr_to_rgb_exact(*(torch.from_numpy(a) for a in (y, cb, cr)))
     assert got.dtype == torch.uint8 and got.shape == (4, 33, 17, 3)
     _eq(got, jcolor.ycbcr_to_rgb_exact(*(jnp.asarray(a) for a in (y, cb, cr))))
+
+
+@pytest.mark.parametrize("seed", [19, 22])
+def test_ycbcr_to_rgb_float(seed):
+    """The float matrix: within 1 of the reference (a product that lands on
+    a half rounds either way)."""
+    y, cb, cr = (_planes(seed + i, (3, 21, 19)) for i in range(3))
+    got = tcolor.ycbcr_to_rgb_float(*(torch.from_numpy(a) for a in (y, cb, cr)))
+    assert got.dtype == torch.uint8 and got.shape == (3, 21, 19, 3)
+    ref = np.asarray(jcolor.ycbcr_to_rgb_float(*(jnp.asarray(a) for a in (y, cb, cr))))
+    assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
+    exact = tcolor.ycbcr_to_rgb_exact(*(torch.from_numpy(a) for a in (y, cb, cr)))
+    assert (got.int() - exact.int()).abs().max() <= 1

@@ -99,8 +99,8 @@ def test_round_records_count_past_maxrec():
 @pytest.mark.parametrize("mode", ["4:2:0", "4:2:2"])
 def test_spec_path_equals_serial_scan_path(mode):
     parsed = tparse(_enc(mode, 48, 64, seed=3))
-    a = tde.entropy_decode_device(parsed)
-    b = tde.entropy_decode_device(parsed, specsync=False)
+    a = tde.entropy_decode_device(parsed, device="cpu")
+    b = tde.entropy_decode_device(parsed, device="cpu", specsync=False)
     assert a.specsync_stats is not None  # the index scan ran
     assert b.specsync_stats is None
     for x, y in zip(a.coefs, b.coefs):
@@ -117,9 +117,9 @@ def test_overflow_falls_back_to_serial(monkeypatch):
         return inp
 
     monkeypatch.setattr(tde, "build_spec_scan_input", tiny_maxrec)
-    a = tde.entropy_decode_device(parsed)
+    a = tde.entropy_decode_device(parsed, device="cpu")
     assert a.specsync_stats is None  # fell back
-    b = tde.entropy_decode_device(parsed, specsync=False)
+    b = tde.entropy_decode_device(parsed, device="cpu", specsync=False)
     for x, y in zip(a.coefs, b.coefs):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
@@ -131,15 +131,15 @@ def test_unsupported_size_falls_back(monkeypatch):
         raise JpegUnsupportedError("forced")
 
     monkeypatch.setattr(tde, "build_spec_scan_input", raise_unsupported)
-    a = tde.entropy_decode_device(parsed)
+    a = tde.entropy_decode_device(parsed, device="cpu")
     assert a.specsync_stats is None
-    b = tde.entropy_decode_device(parsed, specsync=False)
+    b = tde.entropy_decode_device(parsed, device="cpu", specsync=False)
     for x, y in zip(a.coefs, b.coefs):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
 
 
 def test_restart_streams_skip_the_scan():
-    res = tde.entropy_decode_device(tparse(_enc("4:2:0", 48, 48, seed=7, restart=1)))
+    res = tde.entropy_decode_device(tparse(_enc("4:2:0", 48, 48, seed=7, restart=1)), device="cpu")
     assert res.specsync_stats is None
 
 
