@@ -16,8 +16,20 @@
    restart markers with its DC bases applied, a corrupted stream, and
    1080p 4:2:0 at R=1.
 4. K3 against its plain version: bitpos, ok and stats of the whole
-   device_index_scan, for 4:2:0, 4:2:2, 4:4:4 and mono at 130x250 with
-   32-byte subsequences, and 1080p 4:2:0 at the default stride.
+   device_index_scan, and bitpos against the native serial scan, for 4:2:0,
+   4:2:2, 4:4:4 and mono at 130x250 with 32-byte subsequences, MCUs of 18
+   and 12 blocks (h4v4, 4:4:4-2x2), 1080p 4:2:0 and 4K 4:2:2 at the
+   engine's stride, a scan that runs out of rounds, a record overflow (ok
+   False on both sides), a stream that fills its last batch of lanes
+   exactly, and tables that leave windows to decode_symbol (random numbers;
+   a valid table of 200 codes of 11 bits); the symbol tables the kernel
+   builds against their plain version and, with the fall-through, against
+   decode_symbol for every 16-bit prefix of every slot; the lanes that
+   decoded in each pass against the plain version of the lazy scheme; one
+   whole scan under torch.cuda.set_sync_debug_mode("error"); and the
+   engine's decode of a stream whose scan runs out of rounds or overflows
+   its records (the serial fallback) and of an h4v4 frame (K3, no fallback)
+   against the CPU path.
 5. K5 against its plain version (max abs err 0): random blocks on the grids
    (1, 1), (3, 5), (17, 33) and the 1080p luma grid (136, 240), alone and
    with a leading axis of 3, int16, as contiguous planes and as strided
@@ -29,7 +41,9 @@
    table: 1080p 4:2:0, 4K 4:2:2, 512x512 grayscale and the h2v4 frame.
    K4 against its plain version and against the host's dense coefficients
    (equal): the six modes at 130x250, 64x80 grayscale, 1080p 4:2:0 and
-   4K 4:2:2.
+   4K 4:2:2; then the four hand-made streams, hand-made and random streams
+   side by side in the lanes of one tensor (against a scalar walk too), and
+   random entries in every lane.
 6. The main paths, each through ``jpeg_gpu_tpu_torch.get_decoder(data,
    device="cuda", ...).decode(...)`` with the launch counts set to 0 just
    before and read just after.  First the RGB decodes of the fused
@@ -52,9 +66,13 @@
 7. Timings with CUDA events after warm-up, each kernel and its plain
    version in turns (plain, kernel, kernel, plain): K1 for coefs->RGB of
    1080p 4:2:0 nearest at batch 8 and of the 4K 4:2:2 fancy frame; K2 on
-   the 1080p R=1 plan; K3 as a whole device_index_scan at 1080p; K4 on the
-   1080p pack plan (zero-fill included); K5 and K6 on the three planes of a
-   1080p 4:2:0 frame.  Beside each its bound: the larger of the bytes it
+   the 1080p R=1 plan; K3 as a whole device_index_scan at 1080p and 4K,
+   its table kernel alone, the scan swept over subsequences of 128, 256 and
+   512 bytes (rounds, lanes decoded per pass), and again over 1080p frames
+   of quality 50, 75 and 95 in 4:4:4 and 4:2:0 (encoded by worker processes
+   meanwhile) for the most rounds each target needs; K4 on the 1080p and 4K pack plans (its zero-fill
+   included, a torch.zeros of the output beside it); K5 and K6 on the three
+   planes of a 1080p 4:2:0 frame.  Beside each its bound: the larger of the bytes it
    must move over the card's memory rate and its operations over the
    card's float32 rate.  Host clock: parse + native entropy, parse +
    build_spec_scan_input and parse + build_plan per 1080p frame, and the
@@ -75,7 +93,9 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
+import multiprocessing
 import subprocess
 import sys
 import time
@@ -107,6 +127,17 @@ COLOUR_OPS_PER_PIXEL = 17    # 3 multiplies, 8 adds and shifts, 6 clamps
 # of the bound.
 HUFFMAN_OPS_PER_SYMBOL = 10
 PACK_OPS_PER_ENTRY = 10
+
+
+def sweep_encode(job):
+    """(seed, mode, quality) -> the JPEG bytes of that 1080p frame.  Runs in a
+    worker process beside the checks: the encoder is Python and takes seconds
+    a frame."""
+    from jpeg_gpu_tpu_torch.testing import corpus
+
+    seed, mode, quality = job
+    return corpus.own_jpeg(corpus.synthetic_rgb(1080, 1920, seed=seed), subsampling=mode,
+                           quality=quality).data
 
 
 def card_line() -> str:
@@ -188,7 +219,7 @@ def main() -> int:
     from jpeg_gpu_tpu_torch.ops import idct as idct_ops
     from jpeg_gpu_tpu_torch.ops.block_plane import blocks_as_soa
     from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
-    from jpeg_gpu_tpu_torch.testing import corpus
+    from jpeg_gpu_tpu_torch.testing import corpus, pack_cases, scan_cases
     from jpeg_gpu_tpu_torch.testing.encoder import _M as DCT_BASIS_F64
 
     dev = torch.device("cuda")
@@ -222,6 +253,14 @@ def main() -> int:
     t0 = time.perf_counter()
     assert entropy_native.available(), "native host entropy decoder did not build"
     print(f"native entropy build + load (g++): {time.perf_counter() - t0} s")
+
+    # The frames of K3's rounds sweep, encoded in the background from here.
+    sweep_jobs = [(args.seed + 1, mode, quality)
+                  for quality in (50, 75, 95) for mode in ("4:4:4", "4:2:0")]
+    sweep_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    sweep_data = [sweep_pool.submit(sweep_encode, job) for job in sweep_jobs]
+    sweep_pool.shutdown(wait=False)   # the workers end with their last job
 
     def soa_inputs(images, mode, upsample):
         """Encode ``images`` (one geometry) -> (spec, geom, comps, qts) on
@@ -317,41 +356,195 @@ def main() -> int:
     k2_err = max(k2_err, k2_case("1080p 4:2:0 R=1", plan1080))
 
     # -- 4. K3 against its plain version -------------------------------------
-    def scan_inputs(data, subseq_bytes=None):
-        inp = segments.build_spec_scan_input(parse(data), subseq_bytes=subseq_bytes)
+    def scan_inputs(data, subseq_bytes=None, sb_target=device_entropy.SCAN_SB_TARGET):
+        """A scan's inputs on the card, at the engine's subsequence size
+        unless one is pinned."""
+        inp = segments.build_spec_scan_input(parse(data), subseq_bytes=subseq_bytes,
+                                             sb_target=sb_target)
         w, = plan_tensors((inp.windows,), dev)
         tabs = plan_tensors((inp.dcslot_of_c, inp.acslot_of_c, inp.cbase,
                              inp.counts, inp.symbols), dev)
         kw = dict(sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus)
         return (w, inp.n_bits, *tabs), kw
 
-    def k3_case(name, data, subseq_bytes=None):
-        a, kw = scan_inputs(data, subseq_bytes)
-        got = specsync_device.device_index_scan(*a, **kw)
+    def k3_check(name, a, kw, serial):
+        """Kernel against plain on one scan's inputs; ``serial`` is the
+        native scan's bitpos, held wherever the scan came out ok."""
+        before = specsync_device.launches
+        *got, lanes = specsync_device.index_scan_kernel(*a, **kw)
+        # Two kernels a scan: the symbol tables', then the cooperative scan.
+        assert specsync_device.launches == before + 2, name
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         ref = specsync_device.device_index_scan(*a, **kw, plain=True)
+        stop.record()
         torch.cuda.synchronize()
         same = [torch.equal(x, y) for x, y in zip(got, ref)]
         err = int((got[0].long() - ref[0].long()).abs().max())
         stats = got[2].tolist()
-        # Unconverged scans (ok False) leave bitpos undefined; the engine
-        # then falls back to the serial scan.
-        serial = "n/a, not converged"
-        if bool(got[1]):
-            native = entropy_native.index_scan(parse(data), 1)[0].astype(np.int32)
-            serial = np.array_equal(got[0].cpu().numpy(), native)
-        print(f"K3 vs plain {name} (SB {kw['sb']}): bitpos/ok/stats equal {same}; "
-              f"ok {bool(got[1])}, stats (rounds, records, overflow) {stats}; "
-              f"bitpos == serial scan: {serial}")
-        assert all(same) and serial is not False, name
-        return stats, err
+        # Scans that are not ok leave bitpos undefined; the engine then
+        # falls back to the serial scan.
+        vs_serial = "n/a, not ok"
+        if bool(got[1]) and serial is not None:
+            vs_serial = np.array_equal(got[0].cpu().numpy(), serial[: kw["n_mcus"]])
+        lanes = lanes.tolist()[: stats[0] + 1]
+        print(f"K3 vs plain {name} (SB {kw['sb']}, windows {tuple(a[0].shape)}): "
+              f"bitpos/ok/stats equal {same}; ok {bool(got[1])}, stats (rounds, records, "
+              f"overflow) {stats}; lanes decoded per pass {lanes}; bitpos == serial scan: "
+              f"{vs_serial}")
+        assert all(same) and vs_serial is not False, name
+        return stats, err, bool(got[1]), lanes, start.elapsed_time(stop)
+
+    def k3_case(name, data, subseq_bytes=None, want_ok=None, **over):
+        a, kw = scan_inputs(data, subseq_bytes)
+        kw.update(over)
+        serial = entropy_native.index_scan(parse(data), 1)[0].astype(np.int32)
+        out = k3_check(name, a, kw, serial)
+        assert want_ok is None or out[2] == want_ok, name
+        return out
 
     k3_err = 0
     for mode in ("4:2:0", "4:2:2", "4:4:4", "mono"):
-        _, err = k3_case(f"{mode} 130x250", encode(130, 250, mode, args.seed + 23)[1], 32)
+        _, err, *_ = k3_case(f"{mode} 130x250", encode(130, 250, mode, args.seed + 23)[1], 32)
+        k3_err = max(k3_err, err)
+    # MCUs of more than 10 blocks, which the parser accepts: 18 and 12.
+    _, data_h4v4 = encode(260, 500, "h4v4", args.seed + 23)
+    for name, data in (("h4v4 260x500", data_h4v4),
+                       ("4:4:4-2x2 130x250", encode(130, 250, "4:4:4-2x2", args.seed + 23)[1])):
+        _, err, *_ = k3_case(f"{name}, {parse(data).header.blocks_per_mcu()} blocks per MCU",
+                             data, want_ok=True)
         k3_err = max(k3_err, err)
     img1080, data1080 = encode(1080, 1920, "4:2:0", args.seed + 1)
-    k3_stats, err = k3_case("1080p 4:2:0", data1080)
+    img4k, data4k = encode(2160, 3840, "4:2:2", args.seed + 1)
+    k3_stats, err, _, k3_lanes, _ = k3_case("1080p 4:2:0", data1080, want_ok=True)
     k3_err = max(k3_err, err)
+    k3_stats4k, err, _, _, k3_plain4k_ms = k3_case("4K 4:2:2", data4k, want_ok=True)
+    k3_err = max(k3_err, err)
+    _, small_colour = encode(256, 640, "4:2:0", args.seed + 25)
+    _, small_gray = encode(130, 500, "mono", args.seed + 25)
+    stats, err, *_ = k3_case("4:2:0 256x640, runs out of its 16 rounds", small_colour, 32,
+                             want_ok=False)
+    assert stats[0] == 16 and stats[2] == 0, stats
+    k3_err = max(k3_err, err)
+    stats, err, *_ = k3_case("mono 130x500, one record allowed per lane (overflow)",
+                             small_gray, 64, want_ok=False, maxrec=1)
+    assert stats[2] == 1, stats
+    k3_err = max(k3_err, err)
+    # No padding lane: a stream cut at the end of its first batch of
+    # lanes (the last lane's window still holds the words that follow).
+    _, fill_gray = encode(384, 768, "mono", args.seed + 25)
+    a, kw = scan_inputs(fill_gray, 64)
+    assert a[0].shape[0] >= 2, a[0].shape
+    serial = entropy_native.index_scan(parse(fill_gray), 1)[0].astype(np.int32)
+    cut_bits = 1024 * 64 * 8
+    kw["n_mcus"] = int((serial < cut_bits).sum())
+    _, err, ok, *_ = k3_check("mono 384x768 cut to fill one batch of lanes exactly",
+                              (a[0][:1].contiguous(), cut_bits, *a[2:]),
+                              dict(kw, max_rounds=32), serial)
+    assert ok
+    k3_err = max(k3_err, err)
+
+    # Tables that are no Huffman tables leave windows to decode_symbol: the
+    # kernel then runs its step with that call compiled in.
+    a, kw = scan_inputs(encode(64, 96, "4:2:0", args.seed + 26)[1], 32)
+    junk = plan_tensors(scan_cases.random_tables(args.seed + 7), dev)
+    # So does a valid table with long codes under more 10-bit prefixes than
+    # the first level has second-level tables for.
+    deep = plan_tensors(scan_cases.deep_code_tables([t.cpu().numpy() for t in a[4:]]), dev)
+    for name, tabs in (("random numbers for tables", junk),
+                       (f"an AC table of {scan_cases.DEEP_CODES} codes of 11 bits", deep)):
+        assert not bool(specsync_device.scan_lut(*tabs)[1].all()), name
+        _, err, *_ = k3_check(f"4:2:0 64x96 with {name}", (*a[:4], *tabs),
+                              dict(kw, max_rounds=3), None)
+        k3_err = max(k3_err, err)
+
+    # The symbol tables: the kernel's against the plain version's, and their
+    # lookup against decode_symbol, every 16-bit prefix (zero- and
+    # one-extended) of every slot and sublane.
+    for name, tabs in (("1080p 4:2:0", scan_inputs(data1080)[0][4:]),
+                       ("mono 130x500", scan_inputs(small_gray)[0][4:]),
+                       ("deep AC table", deep)):
+        lut, complete = specsync_device.scan_lut(*tabs)
+        assert torch.equal(lut, specsync_device.scan_lut_reference(*tabs)), name
+        assert torch.equal(complete, specsync_device.lut_complete(lut)), name
+        # An encoder's tables leave nothing to decode_symbol; the deep table
+        # leaves its slot's first-level misses.
+        whole = name != "deep AC table"
+        assert bool(complete.all()) == whole and bool(complete[:, :4].all()), name
+        tab = entropy_device._Tables(*tabs)
+        prefix = torch.arange(1 << 16, dtype=torch.int64, device=dev) << 16
+        hi = torch.cat([prefix, prefix | 0xFFFF]).expand(8, -1)
+        for sub in range(8):
+            t = (tab.cbase[:, None], tab.counts[:, None],
+                 tab.symbols[:, sub, None].expand(-1, hi.shape[1], -1), tab.limit[:, None])
+            want = specsync_device.chain_entry(*entropy_device.decode_symbol(hi, *t))
+            got = specsync_device.lut_lookup(lut[sub], hi)
+            answered = got != specsync_device.LUT_MISS
+            assert torch.equal(torch.where(answered, got, want), want), (name, sub)
+            assert bool(answered.all()) == whole, (name, sub)
+        first = lut[..., : 1 << specsync_device.LUT_BITS]
+        direct = float(((first & specsync_device.LUT_SUB) == 0).float().mean())
+        print(f"K3 symbol tables {name}: equal to their plain version; equal to "
+              f"decode_symbol (symbol, length, bits consumed; an invalid code as EOB of 17 "
+              f"bits) for 2 x 65536 windows x 8 slots x 8 sublanes wherever they answer, "
+              f"{float(answered.float().mean())} of sublane 7's windows; {direct} of the first level's {first.numel()} entries answer "
+              f"without the second")
+
+    # Lanes decoded per pass: the kernel's count against the plain version
+    # of its scheme (a lane decodes only when its entry changed).
+    a, kw = scan_inputs(data1080)
+    lazy = specsync_device.device_index_scan_lazy_reference(*a, **kw)
+    torch.cuda.synchronize()
+    print(f"K3 lanes decoded per pass, 1080p 4:2:0: kernel {k3_lanes}, plain lazy scheme "
+          f"{lazy[3]}; of {a[0].shape[0] * 1024} lanes x {len(k3_lanes)} passes = "
+          f"{a[0].shape[0] * 1024 * len(k3_lanes)} lane decodes when every lane decodes "
+          f"every pass, {sum(k3_lanes)} ran")
+    assert k3_lanes == lazy[3], (k3_lanes, lazy[3])
+
+    # A host sync inside the scan raises under the sync debug mode.
+    sync_mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        unsynced = specsync_device.device_index_scan(*a, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(sync_mode)
+    assert all(torch.equal(x, y) for x, y in zip(unsynced, lazy[:3]))
+    print("K3 whole device_index_scan, 1080p 4:2:0, under "
+          "torch.cuda.set_sync_debug_mode('error'): ran, result equal")
+
+    # The engine on streams whose scan fails: the serial fallback runs and
+    # the decode equals the CPU path.
+    real_build = device_entropy.build_spec_scan_input
+
+    def failing_build(subseq_bytes, maxrec=None):
+        def build(parsed, **kw):
+            inp = real_build(parsed, subseq_bytes=subseq_bytes, **kw)
+            inp.maxrec = maxrec or inp.maxrec
+            return inp
+        return build
+
+    for name, data, pins in (("runs out of rounds", small_colour, {"subseq_bytes": 32}),
+                             ("overflows its records", small_gray,
+                              {"subseq_bytes": 64, "maxrec": 1})):
+        device_entropy.build_spec_scan_input = failing_build(**pins)
+        try:
+            before = specsync_device.launches
+            dec = jt.get_decoder(data, device="cuda", entropy="device")
+            out = dec.decode()
+        finally:
+            device_entropy.build_spec_scan_input = real_build
+        assert specsync_device.launches == before + 2 and dec.specsync_stats is None, name
+        assert np.array_equal(out, jt.decode(data, device="cpu")), name
+        print(f"engine, entropy='device', a stream whose scan {name}: K3 ran, the serial "
+              f"fallback took over, equal to the CPU path")
+
+    # An MCU of 18 blocks through the engine: K3 runs, no fallback.
+    dec = jt.get_decoder(data_h4v4, device="cuda", entropy="device")
+    out = dec.decode()
+    assert dec.specsync_stats is not None, "h4v4: the serial index scan ran, not K3"
+    assert np.array_equal(out, jt.decode(data_h4v4, device="cpu"))
+    print(f"engine, entropy='device', h4v4 260x500 (18 blocks per MCU): K3 ran, index scan "
+          f"stats {dec.specsync_stats}, equal to the CPU path")
 
     # -- 5. K5, K6 and K4 against their plain versions -----------------------
     rng = np.random.default_rng(args.seed + 30)
@@ -441,8 +634,40 @@ def main() -> int:
         k4_case(f"{mode} 130x250", encode(130, 250, mode, args.seed + 31)[1])
     k4_case("mono 64x80", encode(64, 80, "mono", args.seed + 32)[1])
     parsed1080, scan1080, pack1080 = k4_case("1080p 4:2:0", data1080)
-    img4k, data4k = encode(2160, 3840, "4:2:2", args.seed + 1)
-    parsed4k, scan4k, _ = k4_case("4K 4:2:2", data4k)
+    parsed4k, scan4k, pack4k = k4_case("4K 4:2:2", data4k)
+
+    def k4_streams(name, words, t, oracle=None):
+        """Hand-made rows: kernel against plain, and against the scalar walk
+        of each filled lane.  The allocator's next block of the output's
+        size is dirtied first, so the kernel's own zero-fill is held too."""
+        nonlocal k4_err
+        streams, = plan_tensors((words,), dev)
+        torch.full((words.shape[0], t, 64, 8, 128), -1, dtype=torch.int16, device=dev)
+        got = pack_device.expand_pack_device(streams, t)
+        ref = pack_device.expand_pack_reference(streams, t)
+        torch.cuda.synchronize()
+        err = int((got.int() - ref.int()).abs().max())
+        k4_err = max(k4_err, err)
+        flat = got.reshape(words.shape[0], t, 64, 1024).cpu().numpy()
+        walked = all(np.array_equal(flat[0, :, :, lane], coefs)
+                     for lane, coefs in (oracle or {}).items())
+        print(f"K4 vs plain {name}: streams {tuple(streams.shape)}, {t} blocks: max abs err "
+              f"{err}; {len(oracle or {})} lanes equal to the scalar walk: {walked}")
+        assert err == 0 and walked, name
+
+    for name, (entries, t, nw) in pack_cases.HANDMADE.items():
+        k4_streams(f"hand-made {name}", pack_cases.stream_words(entries, nw), t,
+                   {0: pack_cases.walk(entries, t)})
+    rows = {lane: e for lane, (e, _, _) in zip((0, 1, 31, 32), pack_cases.HANDMADE.values())}
+    for lane in (33, 640, 1023):
+        rows[lane] = pack_cases.random_entries(rng, int(rng.integers(40, 81)))
+    k4_streams("hand-made and random streams side by side", pack_cases.lanes_words(rows, 40), 5,
+               {lane: pack_cases.walk(e, 5) for lane, e in rows.items()})
+    for b, t, nw in ((1, 3, 1), (2, 7, 17), (1, 12, 100)):
+        e = np.array(pack_cases.random_entries(rng, b * nw * 2048), dtype=np.uint32)
+        e = e.reshape(b, nw, 2, 1024)
+        k4_streams("random entries in every lane",
+                   ((e[:, :, 0] << 16) | e[:, :, 1]).view(np.int32).reshape(b, nw, 8, 128), t)
     gray = corpus.synthetic_rgb(512, 512, seed=args.seed + 2)[..., 1].copy()
     data_gray = corpus.own_jpeg(gray, quality=85).data
     img_v4 = corpus.synthetic_rgb(130, 250, seed=args.seed + 3)
@@ -499,7 +724,8 @@ def main() -> int:
     n_dev = sum(ent == "device" for *_, ent in frames)
     assert main_launches[0] >= len(frames), main_launches
     assert main_launches[1] >= n_dev, main_launches
-    assert main_launches[2] >= 2 * 3, main_launches  # >= 1 round + record, 3 frames
+    # One call per frame without restart markers, two kernels a call.
+    assert main_launches[2] == 2 * 3, main_launches
     cpu_cache = {}
 
     def cpu_decode(data, stage="rgb", **kw):
@@ -619,7 +845,8 @@ def main() -> int:
                 t = mark("K2", t)
                 nseg, mps = plan.n_segments, plan.mcus_per_segment
             else:
-                inp = segments.build_spec_scan_input(parsed)
+                inp = segments.build_spec_scan_input(
+                    parsed, sb_target=device_entropy.SCAN_SB_TARGET)
                 t = mark("host parse + destuff and windows (build_spec_scan_input)", t)
                 w, = plan_tensors((inp.windows,), dev)
                 tabs = plan_tensors((inp.dcslot_of_c, inp.acslot_of_c, inp.cbase,
@@ -631,7 +858,7 @@ def main() -> int:
                     w, inp.n_bits, *tabs[:5], sb=inp.subseq_bytes,
                     maxrec=inp.maxrec, n_mcus=inp.n_mcus)
                 assert bool(ok)
-                t = mark("K3 rounds + record pass + stitch", t)
+                t = mark("K3 whole scan (one call; ok read on the host)", t)
                 streams = specsync_device.gather_entropy_streams(
                     w, bitpos, nw=inp.nw, spw=inp.spw, nws=inp.nws)
                 t = mark("stream gather", t)
@@ -718,10 +945,12 @@ def main() -> int:
 
     reps = 20
 
-    def in_turns(kernel, plain, k_iters, p_iters):
-        """(kernel ms, plain ms, runs) in turns: plain, kernel, kernel, plain."""
+    def in_turns(kernel, plain, k_iters, p_iters, warm_plain=True):
+        """(kernel ms, plain ms, runs) in turns: plain, kernel, kernel, plain.
+        A plain version that takes seconds and ran before is not warmed up."""
         kernel()
-        plain()
+        if warm_plain:
+            plain()
         p_runs = [cuda_ms(plain, p_iters)]
         k_runs = [cuda_ms(kernel, k_iters), cuda_ms(kernel, k_iters)]
         p_runs.append(cuda_ms(plain, p_iters))
@@ -745,29 +974,97 @@ def main() -> int:
     a, kw = scan_inputs(data1080)
     k3_ms, k3_plain_ms, kr, plr = in_turns(
         lambda: specsync_device.device_index_scan(*a, **kw),
-        lambda: specsync_device.device_index_scan(*a, **kw, plain=True), 10, 1)
+        lambda: specsync_device.device_index_scan(*a, **kw, plain=True), 50, 1,
+        warm_plain=False)
     k3_out = specsync_device.device_index_scan(*a, **kw)
     k3_bound = bound(nbytes(*(x for x in a if isinstance(x, torch.Tensor)), *k3_out),
                      symbols1080 * HUFFMAN_OPS_PER_SYMBOL)
-    print(f"K3 whole device_index_scan, 1080p 4:2:0 (windows {tuple(a[0].shape)}, "
-          f"{symbols1080} symbols; this implementation walked them in {k3_stats[0]} "
-          f"rounds + a record pass): kernel {k3_ms} ms runs {kr}; plain torch "
-          f"{k3_plain_ms} ms runs {plr}; {bound_text(k3_bound)}, one pass over the "
-          f"symbols -- a lane is one serial chain of dependent symbol decodes, so the "
-          f"chain's length and not the bytes sets the kernel's time  [{card}]")
+    chain = ("one pass over the symbols -- a lane is one serial chain of dependent symbol "
+             "decodes, so the chain's length and not the bytes sets the kernel's time")
+    print(f"K3 whole device_index_scan, 1080p 4:2:0 (SB {kw['sb']}, windows "
+          f"{tuple(a[0].shape)}, {symbols1080} symbols; {k3_stats[0]} rounds, lanes decoded "
+          f"per pass {k3_lanes}; one call: the table kernel and one cooperative kernel): "
+          f"kernel {k3_ms} ms runs {kr}; plain torch {k3_plain_ms} ms runs {plr}; "
+          f"{bound_text(k3_bound)}, {chain}  [{card}]")
+    lib, lut_raw = specsync_device._kernel(), specsync_device._lut_scratch(dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    k3_tables_ms = [cuda_ms(lambda: lib.jgt_specsync_lut(
+        *(t.data_ptr() for t in a[4:]), lut_raw.data_ptr(), stream), 50) for _ in range(2)]
+    print(f"K3's table kernel alone (64 blocks of 1024 threads, rebuilt in every scan and "
+          f"inside the time above): {sum(k3_tables_ms) / 2} ms runs {k3_tables_ms}  [{card}]")
+    k3_tables_ms = sum(k3_tables_ms) / 2
+    a4k, kw4k = scan_inputs(data4k)
+    symbols4k = symbol_count(scan4k.coefs)
+    k3_4k = [cuda_ms(lambda: specsync_device.device_index_scan(*a4k, **kw4k), 50)
+             for _ in range(2)]
+    b4k = bound(nbytes(a4k[0], *a4k[2:], *specsync_device.device_index_scan(*a4k, **kw4k)),
+                symbols4k * HUFFMAN_OPS_PER_SYMBOL)
+    print(f"K3 whole device_index_scan, 4K 4:2:2 (SB {kw4k['sb']}, windows "
+          f"{tuple(a4k[0].shape)}, {symbols4k} symbols; {k3_stats4k[0]} rounds): kernel "
+          f"{sum(k3_4k) / 2} ms runs {k3_4k}; plain torch {k3_plain4k_ms} ms (the one run of "
+          f"the check above); {bound_text(b4k)}  [{card}]")
 
-    streams1080, = plan_tensors((pack1080.streams,), dev)
-    t_blocks = pack1080.blocks_per_segment
-    k4_ms, k4_plain_ms, kr, plr = in_turns(
-        lambda: pack_device.expand_pack_device(streams1080, t_blocks),
-        lambda: pack_device.expand_pack_reference(streams1080, t_blocks), 50, 1)
-    k4_bound = bound(
-        nbytes(streams1080, pack_device.expand_pack_device(streams1080, t_blocks)),
-        pack1080.packed_entries * PACK_OPS_PER_ENTRY)
-    print(f"K4 PACK expansion with its zero-fill, 1080p 4:2:0 plan "
-          f"{tuple(streams1080.shape)}, {pack1080.n_segments} lanes x {t_blocks} blocks, "
-          f"{pack1080.packed_entries} entries: kernel {k4_ms} ms runs {kr}; plain torch "
-          f"{k4_plain_ms} ms runs {plr}; {bound_text(k4_bound)}  [{card}]")
+    # Subsequence size: shorter chains and more lanes against more rounds.
+    for name, data in (("1080p 4:2:0", data1080), ("4K 4:2:2", data4k)):
+        serial = entropy_native.index_scan(parse(data), 1)[0].astype(np.int32)
+        for label, pin, target in (("pinned", 128, 512), ("pinned", 256, 512),
+                                   ("pinned", 512, 512), ("aimed at 128,", None, 128),
+                                   ("aimed at 256,", None, 256), ("aimed at 512,", None, 512)):
+            if target == device_entropy.SCAN_SB_TARGET and pin is None:
+                label = "the engine's: " + label
+            sa, skw = scan_inputs(data, pin, target)
+            *got, lanes = specsync_device.index_scan_kernel(*sa, **skw)
+            ok = bool(got[1])
+            rounds = int(got[2][0])
+            assert not ok or np.array_equal(got[0].cpu().numpy(), serial), (name, pin)
+            assert ok or pin is not None, name
+            runs = [cuda_ms(lambda: specsync_device.device_index_scan(*sa, **skw), 50)
+                    for _ in range(2)]
+            print(f"K3 subsequence sweep {name}, {label} SB {skw['sb']} (windows "
+                  f"{tuple(sa[0].shape)}, maxrec {skw['maxrec']}): ok {ok}, {rounds} rounds, "
+                  f"lanes decoded per pass {lanes.tolist()[: rounds + 1]}; whole scan "
+                  f"{sum(runs) / 2} ms runs {runs}  [{card}]")
+
+    # Rounds depend on how far a lane decodes before it falls in step with
+    # the true chain, and that moves with quality and subsampling: the
+    # engine's target must converge with room on all of them.
+    worst = {}
+    for (_, mode, quality), data in zip(sweep_jobs, sweep_data):
+        data = data.result()
+        serial = entropy_native.index_scan(parse(data), 1)[0].astype(np.int32)
+        for target in (128, 256, 512):
+            sa, skw = scan_inputs(data, None, target)
+            *got, lanes = specsync_device.index_scan_kernel(*sa, **skw)
+            ok, rounds = bool(got[1]), int(got[2][0])
+            assert not ok or np.array_equal(got[0].cpu().numpy(), serial), (quality, mode)
+            assert ok or target != device_entropy.SCAN_SB_TARGET, (quality, mode)
+            worst[target] = max(worst.get(target, 0), rounds)
+            runs = [cuda_ms(lambda: specsync_device.device_index_scan(*sa, **skw), 50)
+                    for _ in range(2)]
+            print(f"K3 rounds sweep 1080p {mode} quality {quality}, {len(data)} B, aimed "
+                  f"at {target}: SB {skw['sb']} (windows {tuple(sa[0].shape)}), ok {ok}, "
+                  f"{rounds} rounds of 16 allowed, lanes decoded per pass "
+                  f"{lanes.tolist()[: rounds + 1]}; whole scan {sum(runs) / 2} ms "
+                  f"runs {runs}  [{card}]")
+    print(f"K3 rounds sweep, most rounds per target over 3 qualities x 2 modes: {worst}")
+
+    def time_k4(name, plan, p_iters):
+        streams, = plan_tensors((plan.streams,), dev)
+        t_blocks = plan.blocks_per_segment
+        ms, plain_ms, kr, plr = in_turns(
+            lambda: pack_device.expand_pack_device(streams, t_blocks),
+            lambda: pack_device.expand_pack_reference(streams, t_blocks), 50, p_iters)
+        out = pack_device.expand_pack_device(streams, t_blocks)
+        b = bound(nbytes(streams, out), plan.packed_entries * PACK_OPS_PER_ENTRY)
+        zeros_ms = cuda_ms(lambda: torch.zeros(out.shape, dtype=out.dtype, device=dev), 50)
+        print(f"K4 PACK expansion with its zero-fill, {name} plan {tuple(streams.shape)}, "
+              f"{plan.n_segments} lanes x {t_blocks} blocks, {plan.packed_entries} entries: "
+              f"kernel {ms} ms runs {kr}; plain torch {plain_ms} ms runs {plr}; "
+              f"{bound_text(b)}; a torch.zeros of the output alone {zeros_ms} ms  [{card}]")
+        return ms, plain_ms, b
+
+    k4_ms, k4_plain_ms, k4_bound = time_k4("1080p 4:2:0", pack1080, 1)
+    time_k4("4K 4:2:2", pack4k, 1)
 
     def time_planes(name, kernel_fn, plain_fn, ops_per_block):
         """The three planes of the 1080p 4:2:0 frame as the main path hands
@@ -835,7 +1132,8 @@ def main() -> int:
             fn()
         return (time.perf_counter() - t0) / reps * 1e3
 
-    spec_ms = host_ms(lambda: segments.build_spec_scan_input(parse(data1080)))
+    spec_ms = host_ms(lambda: segments.build_spec_scan_input(
+        parse(data1080), sb_target=device_entropy.SCAN_SB_TARGET))
     plan_ms = host_ms(lambda: segments.build_plan(parse(data1080r)))
     print(f"host parse + build_spec_scan_input, 1080p 4:2:0 without restart "
           f"markers: {spec_ms} ms/frame  [{card}]")
@@ -897,7 +1195,7 @@ def main() -> int:
             streams, = plan_tensors((plan.streams,), dev)
             t = mark("H2D of the pack rows", t)
             out = pack_device.expand_pack_device(streams, plan.blocks_per_segment)
-            t = mark("K4 (zero-fill + kernel)", t)
+            t = mark("K4 (one launch, its zero-fill included)", t)
             geom_c = tuple((hdr.components[c].hsamp, hdr.components[c].vsamp)
                            for c in hdr.scan.comp_idx)
             coefs = entropy_device.assemble_components(
@@ -933,7 +1231,7 @@ def main() -> int:
         print(f"  sum: {sum(split.values())} ms")
     busy_share(data1080, card)
 
-    def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None):
+    def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None, **more):
         return {
             "name": stem,
             "route": "cuda",
@@ -946,6 +1244,7 @@ def main() -> int:
             "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
             "library_ms": library_ms,
+            **more,
         }
 
     print(json.dumps({"kernels": [
@@ -954,7 +1253,7 @@ def main() -> int:
         entry(1, "entropy_decode", "jpeg_gpu_tpu/ops/entropy_device.py:128",
               k2_err, k2_ms, k2_plain_ms, k2_bound),
         entry(2, "specsync_scan", "jpeg_gpu_tpu/ops/specsync_device.py:98",
-              k3_err, k3_ms, k3_plain_ms, k3_bound),
+              k3_err, k3_ms, k3_plain_ms, k3_bound, tables_kernel_ms=k3_tables_ms),
         entry(3, "pack_expand", "jpeg_gpu_tpu/ops/pack_device.py:42",
               k4_err, k4_ms, k4_plain_ms, k4_bound),
         entry(4, "idct_islow_plane", "jpeg_gpu_tpu/ops/idct_islow_pallas.py:54",

@@ -32,6 +32,18 @@ from jpeg_gpu_tpu_torch.utils.logging import get_logger
 
 log = get_logger("engine")
 
+# Bytes per subsequence the device index scan aims for (a lane's chain is
+# that long).  Shorter subsequences give more lanes and shorter chains but
+# more rounds, and the scan falls back to the host once it has run 16
+# without converging; build_spec_scan_input never goes below two average
+# MCUs.  On an H100 256 is faster than 512 at 1080p and at 4K.  128 is faster
+# still (0.36 against 0.47 ms at 1080p 4:2:0, quality 85) but over 1080p
+# frames of quality 50, 75 and 95 in 4:4:4 and 4:2:0 it needs up to 14 of the
+# 16 rounds (4:4:4 at quality 95), where 256 needs at most 10 and 512 at
+# most 6: a scan that runs out of rounds costs its own time and then the
+# serial host scan.  chip_smoke.py prints the sweep.
+SCAN_SB_TARGET = 256
+
 
 @dataclasses.dataclass
 class DeviceEntropyResult:
@@ -81,7 +93,7 @@ def _spec_decode_try(parsed: ParsedJpeg, device):
     width, or the stream is out of range: the caller then falls back to
     the serial host scan (build_plan_auto)."""
     try:
-        inp = build_spec_scan_input(parsed)
+        inp = build_spec_scan_input(parsed, sb_target=SCAN_SB_TARGET)
     except JpegUnsupportedError:
         return None
     out, err, ok, stats = _spec_decode_kernel_out(inp, device)

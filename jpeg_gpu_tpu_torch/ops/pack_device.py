@@ -16,7 +16,9 @@ to position 63).  The layouts are the reference's:
   block t of that lane, T = MCUs per lane * blocks per MCU.
 
 On a CUDA tensor :func:`expand_pack_device` launches the hand-written
-kernel ``csrc/pack_expand.cu`` (one thread per lane, direct stores); on a
+kernel ``csrc/pack_expand.cu``: one thread per lane, the rows streamed
+through shared memory ahead of the walk, the output cleared by the kernel
+itself and the values stored straight to their rows, in one launch.  On a
 CPU tensor it runs the plain PyTorch version :func:`expand_pack_reference`,
 which advances all lanes in lockstep.  Both give identical coefficients.
 """
@@ -130,8 +132,8 @@ def expand_pack_device(
     _check_args(streams, blocks_per_segment)
     streams = streams.contiguous()
     b, nw = streams.shape[0], streams.shape[1]
-    # The kernel stores only non-zero values: the zero-fill is part of its work.
-    out = torch.zeros(
+    # The kernel writes every element: zeros first, then the values.
+    out = torch.empty(
         (b, blocks_per_segment, 64, SUBLANES, LANES), dtype=torch.int16, device=dev
     )
     lib = _kernel()

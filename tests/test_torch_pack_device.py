@@ -25,8 +25,10 @@ from jpeg_gpu_tpu_torch.host.pack_plan import build_pack_plan
 from jpeg_gpu_tpu_torch.host.parser import parse
 from jpeg_gpu_tpu_torch.ops import pack_device as tpack
 from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
-from jpeg_gpu_tpu_torch.ops.zigzag import ZIGZAG
 from jpeg_gpu_tpu_torch.testing import corpus
+from jpeg_gpu_tpu_torch.testing.pack_cases import HANDMADE, lanes_words, random_entries
+from jpeg_gpu_tpu_torch.testing.pack_cases import stream_words as _words
+from jpeg_gpu_tpu_torch.testing.pack_cases import walk as _walk
 
 ALL_MODES = ["mono", "4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1"]
 
@@ -70,65 +72,6 @@ def test_plain_vs_jax_kernel_on_the_same_plan(mode, hw, quality):
     np.testing.assert_array_equal(got, ref)
 
 
-def _words(entries, nw):
-    """u16 entries of lane 0 -> (1, nw, 8, 128) int32 streams (other lanes 0)."""
-    e = list(entries) + [0] * (2 * nw - len(entries))
-    assert len(e) == 2 * nw
-    w = np.zeros((1, nw, 1024), dtype=np.uint32)
-    w[0, :, 0] = [(e[2 * i] << 16) | e[2 * i + 1] for i in range(nw)]
-    return w.view(np.int32).reshape(1, nw, 8, 128)
-
-
-def _walk(entries, t):
-    """Scalar oracle: the format's rules on a Python list of u16 entries;
-    reads past the list give 0.  Returns (t, 64) natural-order values."""
-    def sign12(v):
-        return v - 0x1000 if v >= 0x800 else v
-
-    out = np.zeros((t, 64), dtype=np.int16)
-    pos = 0
-
-    def nxt():
-        nonlocal pos
-        e = entries[pos] if pos < len(entries) else 0
-        pos += 1
-        return e
-
-    for b in range(t):
-        out[b, 0] = sign12(nxt() & 0xFFF)
-        k = 0
-        while k < 63:
-            e = nxt()
-            if e == 0:
-                break
-            k += (e >> 12) + 1
-            if k > 63:
-                break
-            out[b, ZIGZAG[k]] = sign12(e & 0xFFF)
-    return out
-
-
-HANDMADE = {
-    # Block 0: DC -5, a run that lands past position 63 (writes nothing and
-    # ends the block without an end-of-block entry).  Block 1 follows at once.
-    "run_past_63": ([0xFFB, (14 << 12) | 7, (15 << 12) | 3, (15 << 12) | 9,
-                     (10 << 12) | 1, (15 << 12) | 2,
-                     0x011, (0 << 12) | 0xFFF, 0x0000], 2, 6),
-    # Block 0: 63 AC values with run 0 fill the block, no end-of-block entry;
-    # block 1's DC comes right after.
-    "full_block_no_eob": ([0x7FF] + [(0 << 12) | (i + 1) for i in range(63)]
-                          + [0x800, (2 << 12) | 0x801, 0x0000], 2, 34),
-    # The row's last entry sits in the low half of the last word; the next
-    # block reads past the row: DC 0 and end of block.
-    "last_entry_in_last_word": ([0x123, (3 << 12) | 0x0F0, (15 << 12) | 0x005,
-                                 0x0000, 0x002, (1 << 12) | 0x3], 3, 3),
-    # An entry with run bits but value 0 stores 0 and still advances; an
-    # all-zero entry ends the block whatever its position.
-    "zero_value_entry": ([0x001, (2 << 12) | 0x000, (0 << 12) | 0x004, 0x0000,
-                          0x000, 0x0000], 2, 3),
-}
-
-
 @pytest.mark.parametrize("name", list(HANDMADE))
 def test_handmade_streams(name):
     entries, t, nw = HANDMADE[name]
@@ -138,6 +81,35 @@ def test_handmade_streams(name):
     want = _walk(entries, t)
     np.testing.assert_array_equal(got[0, :, :, 0, 0], want)
     assert not got[0, :, :, 0, 1:].any() and not got[0, :, :, 1:].any()
+
+
+MIXED_LANES = (0, 1, 31, 32, 33, 640, 1023)
+
+
+def _mixed_lanes(seed, t, nw):
+    """The hand-made streams and random entries side by side in one tensor:
+    neighbouring lanes of one warp and lanes of other warps, each at its own
+    pace.  Returns (streams, {lane: (t, 64) oracle})."""
+    rng = np.random.default_rng(seed)
+    rows = {lane: entries for lane, (entries, _, _) in zip(MIXED_LANES, HANDMADE.values())}
+    for lane in MIXED_LANES[len(HANDMADE):]:
+        rows[lane] = random_entries(rng, int(rng.integers(nw, 2 * nw + 1)))
+    return lanes_words(rows, nw), {lane: _walk(e, t) for lane, e in rows.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lanes_at_different_paces(seed):
+    """Lanes of one tensor that end their blocks at different entries: each
+    equals the scalar walk of its own entries, and the JAX kernel."""
+    t, nw = 5, 40
+    streams, want = _mixed_lanes(seed, t, nw)
+    got, ref = _expand_both(streams, t)
+    np.testing.assert_array_equal(got, ref)
+    flat = got.reshape(t, 64, 1024)
+    for lane, coefs in want.items():
+        np.testing.assert_array_equal(flat[:, :, lane], coefs)
+    others = np.setdiff1d(np.arange(1024), list(want))
+    assert not flat[:, :, others].any()
 
 
 @pytest.mark.parametrize("mode", ALL_MODES)
@@ -229,4 +201,39 @@ def test_handmade_streams_on_gpu(name):
     got = tpack.expand_pack_device(streams, t)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got[0, :, :, 0, 0].cpu().numpy(), _walk(entries, t))
+    assert torch.equal(got, tpack.expand_pack_reference(streams, t))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lanes_at_different_paces_on_gpu(seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K4 kernel has no CPU mode")
+    t, nw = 5, 40
+    words, want = _mixed_lanes(seed, t, nw)
+    streams, = plan_tensors((words,), "cuda")
+    got = tpack.expand_pack_device(streams, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpack.expand_pack_reference(streams, t))
+    flat = got.reshape(t, 64, 1024).cpu().numpy()
+    for lane, coefs in want.items():
+        np.testing.assert_array_equal(flat[:, :, lane], coefs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,nw", [(1, 3, 1), (2, 7, 17), (1, 12, 100)])
+def test_random_entries_in_every_lane_on_gpu(b, t, nw):
+    """Every lane full of entries no encoder would write, rows shorter and
+    longer than the kernel's staging tile; the output starts as garbage, so
+    the kernel's own zero-fill is held too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K4 kernel has no CPU mode")
+    rng = np.random.default_rng(b * 100 + t)
+    e = np.array(random_entries(rng, b * nw * 2048), dtype=np.uint32).reshape(b, nw, 2, 1024)
+    words = ((e[:, :, 0] << 16) | e[:, :, 1]).view(np.int32).reshape(b, nw, 8, 128)
+    streams, = plan_tensors((words,), "cuda")
+    # Dirty the allocator's next block of this size.
+    torch.full((b, t, 64, 8, 128), -1, dtype=torch.int16, device="cuda")
+    got = tpack.expand_pack_device(streams, t)
+    torch.cuda.synchronize()
     assert torch.equal(got, tpack.expand_pack_reference(streams, t))
