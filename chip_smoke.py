@@ -11,10 +11,10 @@
    native host entropy decoder (g++).
 2. K1 against its plain PyTorch version on the same CUDA tensors, for the
    five fused geometries x {nearest, fancy} at 17x31, 130x250 and 10x4200.
-3. K2 against its plain version: coefficients and the full flag tensor, for
-   the six modes x restart intervals {1, 3} at 130x250, a plan without
-   restart markers with its DC bases applied, a corrupted stream, and
-   1080p 4:2:0 at R=1.
+3. K2's row form against its plain version: coefficients and the full flag
+   tensor, for the six modes x restart intervals {1, 3} at 130x250, a plan
+   without restart markers with its DC bases applied, a corrupted stream,
+   and 1080p 4:2:0 at R=1.
 4. K3 against its plain version: bitpos, ok and stats of the whole
    device_index_scan, and bitpos against the native serial scan, for 4:2:0,
    4:2:2, 4:4:4 and mono at 130x250 with 32-byte subsequences, MCUs of 18
@@ -29,16 +29,26 @@
    whole scan under torch.cuda.set_sync_debug_mode("error"); and the
    engine's decode of a stream whose scan runs out of rounds or overflows
    its records (the serial fallback) and of an h4v4 frame (K3, no fallback)
-   against the CPU path.
+   against the CPU path.  K2's symbol tables are held the same way.  Then
+   K2's fused form (``decode_mcus_at_bitpos``: lane m decodes MCU m out of
+   the scan's windows and the DC predictors are added on the card) against
+   its plain version, coefficients and flags, and against the chain it
+   replaces (gather -> row form -> DC bases): the six modes at 130x250, MCUs
+   of 18 and 12 blocks, 1080p 4:2:0, 4K 4:2:2, the stream that fills its
+   batch of lanes exactly, a corrupted stream, the tables that leave windows
+   to decode_symbol, and a frame whose noisiest MCUs overflow what a warp
+   stages in shared memory.
 5. K5 against its plain version (max abs err 0): random blocks on the grids
    (1, 1), (3, 5), (17, 33) and the 1080p luma grid (136, 240), alone and
    with a leading axis of 3, int16, as contiguous planes and as strided
-   views of blocks.  K6 against its plain version (max abs err <= 1, the
+   views of blocks; then all four grids in one launch, each with its own
+   table, contiguous, as views and mixed, equal to one call per plane.  K6
+   against its plain version (max abs err <= 1, the
    count of differing samples printed): random blocks in [-300, 300) with
    tables in [1, 50), and IEEE 1180-style statistics of the card's output
    against a float64 numpy IDCT.  Then K5 and K6 on the decoded coefficients
    of the frames the main paths decode, every component's grid with its own
-   table: 1080p 4:2:0, 4K 4:2:2, 512x512 grayscale and the h2v4 frame.
+   table, for K5 also all components in one launch: 1080p 4:2:0, 4K 4:2:2, 512x512 grayscale and the h2v4 frame.
    K4 against its plain version and against the host's dense coefficients
    (equal): the six modes at 130x250, 64x80 grayscale, 1080p 4:2:0 and
    4K 4:2:2; then the four hand-made streams, hand-made and random streams
@@ -49,30 +59,33 @@
    before and read just after.  First the RGB decodes of the fused
    geometries: host entropy on a 1080p 4:2:0 frame (nearest and fancy) and
    a 3840x2160 4:2:2 fancy frame (K1); ``entropy="device"`` on 1080p 4:2:0
-   without restart markers, nearest and fancy (K3 -> K2 -> K1), 1080p 4:2:0
+   without restart markers, nearest and fancy (K3 -> K2's fused form, two
+   launches -> K1; each kernel's table kernel once per table set), 1080p 4:2:0
    with a restart marker per MCU (K2 -> K1) and 4K 4:2:2 fancy without
    restart markers.  Then the paths of the standalone kernels: ``out="yuv"``
-   at 1080p 4:2:0 with host entropy and with ``entropy="device"`` (K5 x3
-   each), 512x512 grayscale RGB (K5) and a 3-component geometry the fused
-   kernel does not take (K5 x3); ``exact=False`` RGB at 1080p 4:2:0 with
+   at 1080p 4:2:0 with host entropy and with ``entropy="device"`` (K5, one
+   launch each), 512x512 grayscale RGB (K5) and a 3-component geometry the
+   fused kernel does not take (K5, one launch); ``exact=False`` RGB at 1080p 4:2:0 with
    host entropy and with ``entropy="device"`` (K6 x3 each; within 2 of the
    CPU port and within 4 of the exact decode); ``upload="pack"`` fancy RGB
-   at 1080p 4:2:0 and 4K 4:2:2 (K4 -> K5 x3) and ``upload="pack"`` with
+   at 1080p 4:2:0 and 4K 4:2:2 (K4 -> K5, one launch) and ``upload="pack"`` with
    ``out="quant"`` equal to the host's coefficients.  The exact paths equal
-   the CPU path; every kernel's launch count rose on its path; the frames
+   the CPU path; every kernel's launch count is the one stated; the frames
    without restart markers went through the device index scan (no serial
    fallback).  Then one corrupted restart-marked frame with
    ``on_error="zero"`` equals the CPU port's salvage.
 7. Timings with CUDA events after warm-up, each kernel and its plain
    version in turns (plain, kernel, kernel, plain): K1 for coefs->RGB of
-   1080p 4:2:0 nearest at batch 8 and of the 4K 4:2:2 fancy frame; K2 on
-   the 1080p R=1 plan; K3 as a whole device_index_scan at 1080p and 4K,
+   1080p 4:2:0 nearest at batch 8 and of the 4K 4:2:2 fancy frame; K2's row
+   form on the 1080p R=1 plan, its table kernel alone, and its fused form on
+   the 1080p and 4K scan inputs with the chain it replaces beside it; K3 as a whole device_index_scan at 1080p and 4K,
    its table kernel alone, the scan swept over subsequences of 128, 256 and
    512 bytes (rounds, lanes decoded per pass), and again over 1080p frames
    of quality 50, 75 and 95 in 4:4:4 and 4:2:0 (encoded by worker processes
    meanwhile) for the most rounds each target needs; K4 on the 1080p and 4K pack plans (its zero-fill
-   included, a torch.zeros of the output beside it); K5 and K6 on the three
-   planes of a 1080p 4:2:0 frame.  Beside each its bound: the larger of the bytes it
+   included, a torch.zeros of the output beside it); K5 (one launch) and K6
+   (three) on the three planes of a 1080p 4:2:0 frame, with the kernels'
+   device time from torch.profiler beside the event timing of the wrapper.  Beside each its bound: the larger of the bytes it
    must move over the card's memory rate and its operations over the
    card's float32 rate.  Host clock: parse + native entropy, parse +
    build_spec_scan_input and parse + build_plan per 1080p frame, and the
@@ -160,6 +173,23 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters: int) -> dict:
+    """Mean device time of each kernel fn() launches, by name, from
+    torch.profiler's device-side events: what the card spends, without the
+    wrapper's time on the host, which the back-to-back launches of cuda_ms
+    include whenever the host is the slower of the two."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:72]: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -223,6 +253,11 @@ def main() -> int:
     from jpeg_gpu_tpu_torch.testing.encoder import _M as DCT_BASIS_F64
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def phase_done(n):
+        print(f"-- phase {n} done {time.perf_counter() - t_start:.1f} s after the start")
+
     card = card_line()
     kind = torch.cuda.get_device_name(0)
 
@@ -254,6 +289,7 @@ def main() -> int:
     assert entropy_native.available(), "native host entropy decoder did not build"
     print(f"native entropy build + load (g++): {time.perf_counter() - t0} s")
 
+    phase_done(1)
     # The frames of K3's rounds sweep, encoded in the background from here.
     sweep_jobs = [(args.seed + 1, mode, quality)
                   for quality in (50, 75, 95) for mode in ("4:4:4", "4:2:0")]
@@ -299,6 +335,7 @@ def main() -> int:
                       f"max abs err {err}")
                 assert err == 0, (mode, ups, h, w)
 
+    phase_done(2)
     def encode(h, w, mode, seed, restart=0):
         img = corpus.synthetic_rgb(h, w, seed=seed)
         if mode == "mono":
@@ -355,6 +392,7 @@ def main() -> int:
     plan1080 = segments.build_plan(parse(data1080r))
     k2_err = max(k2_err, k2_case("1080p 4:2:0 R=1", plan1080))
 
+    phase_done(3)
     # -- 4. K3 against its plain version -------------------------------------
     def scan_inputs(data, subseq_bytes=None, sb_target=device_entropy.SCAN_SB_TARGET):
         """A scan's inputs on the card, at the engine's subsequence size
@@ -438,6 +476,7 @@ def main() -> int:
     serial = entropy_native.index_scan(parse(fill_gray), 1)[0].astype(np.int32)
     cut_bits = 1024 * 64 * 8
     kw["n_mcus"] = int((serial < cut_bits).sum())
+    fill_serial = serial
     _, err, ok, *_ = k3_check("mono 384x768 cut to fill one batch of lanes exactly",
                               (a[0][:1].contiguous(), cut_bits, *a[2:]),
                               dict(kw, max_rounds=32), serial)
@@ -458,37 +497,160 @@ def main() -> int:
                               dict(kw, max_rounds=3), None)
         k3_err = max(k3_err, err)
 
-    # The symbol tables: the kernel's against the plain version's, and their
-    # lookup against decode_symbol, every 16-bit prefix (zero- and
-    # one-extended) of every slot and sublane.
-    for name, tabs in (("1080p 4:2:0", scan_inputs(data1080)[0][4:]),
-                       ("mono 130x500", scan_inputs(small_gray)[0][4:]),
-                       ("deep AC table", deep)):
-        lut, complete = specsync_device.scan_lut(*tabs)
-        assert torch.equal(lut, specsync_device.scan_lut_reference(*tabs)), name
-        assert torch.equal(complete, specsync_device.lut_complete(lut)), name
-        # An encoder's tables leave nothing to decode_symbol; the deep table
-        # leaves its slot's first-level misses.
-        whole = name != "deep AC table"
-        assert bool(complete.all()) == whole and bool(complete[:, :4].all()), name
-        tab = entropy_device._Tables(*tabs)
-        prefix = torch.arange(1 << 16, dtype=torch.int64, device=dev) << 16
-        hi = torch.cat([prefix, prefix | 0xFFFF]).expand(8, -1)
-        for sub in range(8):
-            t = (tab.cbase[:, None], tab.counts[:, None],
-                 tab.symbols[:, sub, None].expand(-1, hi.shape[1], -1), tab.limit[:, None])
-            want = specsync_device.chain_entry(*entropy_device.decode_symbol(hi, *t))
-            got = specsync_device.lut_lookup(lut[sub], hi)
-            answered = got != specsync_device.LUT_MISS
-            assert torch.equal(torch.where(answered, got, want), want), (name, sub)
-            assert bool(answered.all()) == whole, (name, sub)
-        first = lut[..., : 1 << specsync_device.LUT_BITS]
-        direct = float(((first & specsync_device.LUT_SUB) == 0).float().mean())
-        print(f"K3 symbol tables {name}: equal to their plain version; equal to "
-              f"decode_symbol (symbol, length, bits consumed; an invalid code as EOB of 17 "
-              f"bits) for 2 x 65536 windows x 8 slots x 8 sublanes wherever they answer, "
-              f"{float(answered.float().mean())} of sublane 7's windows; {direct} of the first level's {first.numel()} entries answer "
-              f"without the second")
+    # The symbol tables, K3's and K2's: the kernel's against the plain
+    # version's, and their lookup against decode_symbol, every 16-bit prefix
+    # (zero- and one-extended) of every slot and sublane.
+    def lut_check(kname, build, reference, entry, what):
+        for name, tabs in (("1080p 4:2:0", scan_inputs(data1080)[0][4:]),
+                           ("mono 130x500", scan_inputs(small_gray)[0][4:]),
+                           ("deep AC table", deep)):
+            lut, complete = build(*tabs)
+            assert torch.equal(lut, reference(*tabs)), (kname, name)
+            assert torch.equal(complete, entropy_device.lut_complete(lut)), (kname, name)
+            # An encoder's tables leave nothing to decode_symbol; the deep table
+            # leaves its slot's first-level misses.
+            whole = name != "deep AC table"
+            assert bool(complete.all()) == whole and bool(complete[:, :4].all()), (kname, name)
+            tab = entropy_device._Tables(*tabs)
+            prefix = torch.arange(1 << 16, dtype=torch.int64, device=dev) << 16
+            hi = torch.cat([prefix, prefix | 0xFFFF]).expand(8, -1)
+            for sub in range(8):
+                t = (tab.cbase[:, None], tab.counts[:, None],
+                     tab.symbols[:, sub, None].expand(-1, hi.shape[1], -1), tab.limit[:, None])
+                want = entry(*entropy_device.decode_symbol(hi, *t))
+                got = entropy_device.lut_lookup(lut[sub], hi)
+                answered = got != entropy_device.LUT_MISS
+                assert torch.equal(torch.where(answered, got, want), want), (kname, name, sub)
+                assert bool(answered.all()) == whole, (kname, name, sub)
+            first = lut[..., : 1 << entropy_device.LUT_BITS]
+            direct = float(((first & entropy_device.LUT_SUB) == 0).float().mean())
+            print(f"{kname} symbol tables {name}: equal to their plain version; equal to "
+                  f"decode_symbol ({what}) for 2 x 65536 windows x 8 slots x 8 sublanes "
+                  f"wherever they answer, {float(answered.float().mean())} of sublane 7's "
+                  f"windows; {direct} of the first level's {first.numel()} entries answer "
+                  f"without the second")
+
+    lut_check("K3", specsync_device.scan_lut, specsync_device.scan_lut_reference,
+              specsync_device.chain_entry,
+              "symbol, length, bits consumed; an invalid code as EOB of 17 bits")
+
+    def k2_lut(*tabs):
+        tables, complete = entropy_device.lut_views(entropy_device.symbol_lut(*tabs))
+        return tables[0], complete[0]
+
+    lut_check("K2", k2_lut, entropy_device.lut_reference, entropy_device.symbol_entry,
+              "code length and symbol; any invalid code as length 17")
+
+    # K2's fused form against its plain version (coefficients with the DC
+    # predictors applied, and the full flag tensor) and against the chain it
+    # replaces, gather -> row form -> DC bases, on rows as wide as the plain
+    # version's: equal on the real lanes, flags equal but for the end check's
+    # ERR_OVERRUN (0 on both sides for a valid stream).
+    def fused_inputs(data, subseq_bytes=None):
+        inp = segments.build_spec_scan_input(parse(data, validate=False),
+                                             subseq_bytes=subseq_bytes,
+                                             sb_target=device_entropy.SCAN_SB_TARGET)
+        return inp, plan_tensors(
+            (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.cbase, inp.counts, inp.symbols,
+             inp.comp_of_step, inp.dc_slot_of_step, inp.ac_slot_of_step, inp.seg_meta), dev)
+
+    def real_lanes(x, n):
+        return x.reshape(x.shape[0], -1, 1024).movedim(-1, 1).reshape(x.shape[0] * 1024, -1)[:n]
+
+    def old_chain(inp, t, bitpos, tabs, nw, lut=None):
+        w, cm, dm, am, meta = t[0], *t[6:10]
+        streams = entropy_device.gather_entropy_streams(w, bitpos, nw=nw, spw=inp.spw,
+                                                        nws=inp.nws)
+        out, err = entropy_device.decode_segments_device(streams, cm, dm, am, meta, *tabs,
+                                                         lut=lut)
+        dcb = entropy_device.dc_base_from_coefs(out, inp.t_last)
+        return entropy_device.apply_dc_base(out, dcb, cm), err
+
+    k2_fused_err = 0
+
+    def k2_fused_case(name, inp, t, bitpos=None, n_bits=None, tables=None, valid=True):
+        nonlocal k2_fused_err
+        w, dc_c, ac_c, cm, dm, am = t[0], t[1], t[2], *t[6:9]
+        tabs = tables or t[3:6]
+        n_bits = inp.n_bits if n_bits is None else n_bits
+        ok = None
+        if bitpos is None:
+            bitpos, ok, _ = specsync_device.device_index_scan(
+                w, n_bits, dc_c, ac_c, *tabs, sb=inp.subseq_bytes, maxrec=inp.maxrec,
+                n_mcus=inp.n_mcus)
+        n = bitpos.shape[0]
+        before = entropy_device.launches
+        got, gerr = entropy_device.decode_mcus_at_bitpos(w, bitpos, n_bits, cm, dm, am, *tabs,
+                                                         spw=inp.spw)
+        # The table kernel (none were given), the decode, the DC predictors.
+        assert entropy_device.launches == before + 3, name
+        ref, rerr = entropy_device.decode_mcus_at_bitpos_reference(
+            w, bitpos, n_bits, cm, dm, am, *tabs, spw=inp.spw)
+        wide = min(cm.shape[0] * 64 * 31 // 32, w.shape[0] * 1024 * inp.spw) + 3
+        old, oerr = old_chain(inp, t, bitpos, tabs, wide)
+        torch.cuda.synchronize()
+        err = int((got.int() - ref.int()).abs().max())
+        k2_fused_err = max(k2_fused_err, err)
+        over = entropy_device.ERR_OVERRUN
+        same_old = (torch.equal(real_lanes(got, n), real_lanes(old, n))
+                    and torch.equal(real_lanes(gerr, n) | over, real_lanes(oerr, n) | over))
+        nflag = int((gerr != 0).sum())
+        # The longest span of the stream one warp's MCUs cover, in words.
+        bp = bitpos.cpu().numpy().astype(np.int64) & 0xFFFFFFFF
+        ends = np.append(bp[1:], n_bits)
+        span = max(int((ends[min(i + 31, n - 1)] >> 5) + 3 - (bp[i] >> 5))
+                   for i in range(0, n, 32))
+        print(f"K2 fused vs plain {name}: windows {tuple(w.shape)}, {n} MCUs x "
+              f"{cm.shape[0]} blocks, scan ok {None if ok is None else bool(ok)}: coefs "
+              f"{tuple(got.shape)} max abs err {err}, flags equal {torch.equal(gerr, rerr)} "
+              f"({nflag} lanes flagged); equal to gather -> row form -> DC bases on the "
+              f"real lanes: {same_old}; longest warp span {span} words (2048 are staged)")
+        assert err == 0 and torch.equal(gerr, rerr) and same_old, name
+        if valid:
+            assert nflag == 0 and (ok is None or bool(ok)), name
+            assert torch.equal(real_lanes(gerr, n), real_lanes(oerr, n)), name
+        return span, nflag
+
+    for mode in ("mono", "4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1"):
+        k2_fused_case(f"{mode} 130x250", *fused_inputs(encode(130, 250, mode, args.seed + 23)[1]))
+    k2_fused_case("h4v4 260x500, 18 blocks per MCU", *fused_inputs(data_h4v4))
+    k2_fused_case("4:4:4-2x2 130x250, 12 blocks per MCU",
+                  *fused_inputs(encode(130, 250, "4:4:4-2x2", args.seed + 23)[1]))
+    k2_fused_case("1080p 4:2:0", *fused_inputs(data1080))
+    k2_fused_case("4K 4:2:2", *fused_inputs(data4k))
+    # The stream that fills its one batch of lanes exactly: the last MCU
+    # runs past the grid, into the 0xFFFFFFFF padding.
+    inp, t = fused_inputs(fill_gray, 64)
+    cut_pos = torch.from_numpy(fill_serial[fill_serial < cut_bits].copy()).to(dev)
+    k2_fused_case("mono 384x768 cut to fill one batch of lanes exactly", inp,
+                  (t[0][:1].contiguous(), *t[1:]), bitpos=cut_pos, n_bits=cut_bits,
+                  valid=False)
+    # A corrupted stream: 40 bytes of ones in the middle of the scan.
+    _, data = encode(130, 250, "4:2:0", args.seed + 27)
+    s0, e0 = parse(data).segments[0]
+    mid = (s0 + e0) // 2
+    bad = data[:mid] + (b"\xff\x00" * 20) + data[mid + 40:]
+    _, nflag = k2_fused_case("4:2:0 130x250, 40 bytes of the scan overwritten with ones",
+                             *fused_inputs(bad), valid=False)
+    assert nflag > 0
+    # Tables that leave windows to decode_symbol.
+    inp, t = fused_inputs(encode(64, 96, "4:2:0", args.seed + 26)[1], 32)
+    for name, tabs in (("random numbers for tables", junk),
+                       (f"an AC table of {scan_cases.DEEP_CODES} codes of 11 bits", deep)):
+        assert not bool(k2_lut(*tabs)[1].all()), name
+        k2_fused_case(f"4:2:0 64x96 with {name}", inp, t, tables=tabs, valid=False)
+    # A few MCUs of noise at quality 100 among flat ones: one warp's MCUs
+    # cover more of the stream than is staged, the rest is read from device
+    # memory.  (The bit positions are the serial scan's: MCUs of a few bytes
+    # beside MCUs of a kilobyte overflow the index scan's records.)
+    noisy = np.full((64, 1024, 3), 128, np.uint8)
+    noisy[16:32] = np.random.default_rng(args.seed + 28).integers(0, 256, (16, 1024, 3))
+    data = corpus.own_jpeg(noisy, subsampling="4:2:0", quality=100).data
+    noisy_pos = entropy_native.index_scan(parse(data), 1)[0].astype(np.int32)
+    span, _ = k2_fused_case(
+        "4:2:0 64x1024 quality 100, one MCU row of noise among flat ones",
+        *fused_inputs(data), bitpos=torch.from_numpy(noisy_pos).to(dev))
+    assert span > 2048, span
 
     # Lanes decoded per pass: the kernel's count against the plain version
     # of its scheme (a lane decodes only when its entry changed).
@@ -527,12 +689,14 @@ def main() -> int:
                              ("overflows its records", small_gray,
                               {"subseq_bytes": 64, "maxrec": 1})):
         device_entropy.build_spec_scan_input = failing_build(**pins)
+        device_entropy._DEVICE_TABLES.clear()   # the tables' build counts below
         try:
             before = specsync_device.launches
             dec = jt.get_decoder(data, device="cuda", entropy="device")
             out = dec.decode()
         finally:
             device_entropy.build_spec_scan_input = real_build
+        # K3's table kernel (once per table set) and its scan.
         assert specsync_device.launches == before + 2 and dec.specsync_stats is None, name
         assert np.array_equal(out, jt.decode(data, device="cpu")), name
         print(f"engine, entropy='device', a stream whose scan {name}: K3 ran, the serial "
@@ -546,6 +710,7 @@ def main() -> int:
     print(f"engine, entropy='device', h4v4 260x500 (18 blocks per MCU): K3 ran, index scan "
           f"stats {dec.specsync_stats}, equal to the CPU path")
 
+    phase_done(4)
     # -- 5. K5, K6 and K4 against their plain versions -----------------------
     rng = np.random.default_rng(args.seed + 30)
 
@@ -569,6 +734,37 @@ def main() -> int:
                 print(f"K5 vs plain {lead + (vb, hb)} blocks, int16, {layout}: "
                       f"max abs err {err}")
                 assert err == 0, (lead, vb, hb, layout)
+
+    # All four grids in one launch, each plane with its own table; planes as
+    # contiguous SoA and as views of blocks, mixed too; equal to its plain
+    # version and to one call per plane.
+    def k5_multi(name, planes, tables):
+        nonlocal k5_err
+        before = idct_islow_plane.launches
+        got = idct_islow_plane.dequant_idct_islow_planes_soa(planes, tables)
+        assert idct_islow_plane.launches == before + 1, name
+        ref = [idct_islow_plane.dequant_idct_islow_plane_soa_reference(c, q)
+               for c, q in zip(planes, tables)]
+        single = [idct_islow_plane.dequant_idct_islow_plane_soa(c, q)
+                  for c, q in zip(planes, tables)]
+        torch.cuda.synchronize()
+        err = max(int((g.int() - r.int()).abs().max()) for g, r in zip(got, ref))
+        same = all(torch.equal(g, x) for g, x in zip(got, single))
+        k5_err = max(k5_err, err)
+        print(f"K5 one launch vs plain {name}: {[tuple(g.shape) for g in got]} samples, "
+              f"max abs err {err}; equal to one call per plane: {same}")
+        assert err == 0 and same, name
+
+    multi = [random_blocks(g, 1500, 64) for g in ((1, 1), (3, 5), (17, 33), (136, 240))]
+    for layout, pick in (("contiguous planes", lambda i, c: blocks_as_soa(c).contiguous()),
+                         ("views of blocks", lambda i, c: blocks_as_soa(c)),
+                         ("planes and views in turn",
+                          lambda i, c: blocks_as_soa(c).contiguous() if i % 2 else blocks_as_soa(c))):
+        k5_multi(f"grids (1, 1), (3, 5), (17, 33), (136, 240), {layout}",
+                 [pick(i, c) for i, (c, _) in enumerate(multi)], [q for _, q in multi])
+    c3, q3 = random_blocks((3, 17, 33), 1500, 64)
+    k5_multi("a leading axis of 3 beside a single grid",
+             [blocks_as_soa(c3), blocks_as_soa(multi[1][0])], [q3, multi[1][1]])
 
     k6_err = 0
 
@@ -694,6 +890,10 @@ def main() -> int:
             k6_case(f"{name} decoded coefficients, component {ci} {tuple(c.shape[:2])} blocks",
                     idct_float.dequant_idct_float_plane_soa(soa, q),
                     idct_float.dequant_idct_float_plane_soa_reference(soa, q))
+        for layout, views in (("views of blocks", [blocks_as_soa(c) for c in planes]),
+                              ("contiguous planes",
+                               [blocks_as_soa(c).contiguous() for c in planes])):
+            k5_multi(f"{name} decoded coefficients, all components, {layout}", views, list(qts))
         return planes, qts
 
     k6_planes, k6_qts = decoded_planes("1080p 4:2:0", parsed1080, scan1080.coefs)
@@ -702,6 +902,7 @@ def main() -> int:
         parsed = parse(data)
         decoded_planes(name, parsed, entropy_native.decode_scan(parsed).coefs)
 
+    phase_done(5)
     # -- 6. the main paths ---------------------------------------------------
     frames = [("1080p 4:2:0", img1080, data1080, "nearest", "auto"),
               ("1080p 4:2:0", img1080, data1080, "fancy", "auto"),
@@ -710,6 +911,9 @@ def main() -> int:
               ("1080p 4:2:0", img1080, data1080, "fancy", "device"),
               ("1080p 4:2:0 R=1", img1080r, data1080r, "nearest", "device"),
               ("4K 4:2:2", img4k, data4k, "fancy", "device")]
+    # Table sets stay on the card between decodes; from an empty cache the
+    # main path builds each set's symbol tables once, and that is counted.
+    device_entropy._DEVICE_TABLES.clear()
     for mod in kernels:
         mod.launches = 0
     outs, scan_stats = [], []
@@ -721,11 +925,22 @@ def main() -> int:
     main_launches = [mod.launches for mod in kernels]
     print(f"main path, RGB of the fused geometries: {len(frames)} decodes; launches "
           f"K1 {main_launches[0]}, K2 {main_launches[1]}, K3 {main_launches[2]}")
-    n_dev = sum(ent == "device" for *_, ent in frames)
-    assert main_launches[0] >= len(frames), main_launches
-    assert main_launches[1] >= n_dev, main_launches
-    # One call per frame without restart markers, two kernels a call.
-    assert main_launches[2] == 2 * 3, main_launches
+    assert main_launches[0] == len(frames), main_launches
+    dev_frames = [data for _, _, data, _, ent in frames if ent == "device"]
+    scan_frames = [data for data in dev_frames if not parse(data).header.restart_interval]
+
+    def table_sets(datas):
+        return len({id(segments._table_tensors(parse(d).header)[0]) for d in datas})
+
+    # K2 per decode: two launches without restart markers (the decode out of
+    # the scan's windows, then the DC predictors), one with them; K3 one, the
+    # cooperative scan.  Each kernel's table kernel once per table set.
+    want_k2 = 2 * len(scan_frames) + (len(dev_frames) - len(scan_frames)) + table_sets(dev_frames)
+    want_k3 = len(scan_frames) + table_sets(scan_frames)
+    print(f"  K2: {len(scan_frames)} fused decodes x 2 + {len(dev_frames) - len(scan_frames)} "
+          f"row-form decodes + {table_sets(dev_frames)} table builds = {want_k2}; K3: "
+          f"{len(scan_frames)} scans + {table_sets(scan_frames)} table builds = {want_k3}")
+    assert main_launches[1] == want_k2 and main_launches[2] == want_k3, main_launches
     cpu_cache = {}
 
     def cpu_decode(data, stage="rgb", **kw):
@@ -759,18 +974,18 @@ def main() -> int:
 
     # (name, data, stage, decoder options, launches expected of (K4, K5, K6))
     paths = [
-        ("1080p 4:2:0 yuv", data1080, "yuv", {}, (0, 3, 0)),
-        ("1080p 4:2:0 yuv entropy=device", data1080, "yuv", {"entropy": "device"}, (0, 3, 0)),
+        ("1080p 4:2:0 yuv", data1080, "yuv", {}, (0, 1, 0)),
+        ("1080p 4:2:0 yuv entropy=device", data1080, "yuv", {"entropy": "device"}, (0, 1, 0)),
         ("512x512 gray rgb", data_gray, "rgb", {}, (0, 1, 0)),
         ("130x250 h2v4 fancy rgb (no fused geometry)", data_v4, "rgb",
-         {"upsample": "fancy"}, (0, 3, 0)),
+         {"upsample": "fancy"}, (0, 1, 0)),
         ("1080p 4:2:0 rgb exact=False", data1080, "rgb", {"exact": False}, (0, 0, 3)),
         ("1080p 4:2:0 rgb exact=False entropy=device", data1080, "rgb",
          {"exact": False, "entropy": "device"}, (0, 0, 3)),
         ("1080p 4:2:0 fancy rgb upload=pack", data1080, "rgb",
-         {"upload": "pack", "upsample": "fancy"}, (1, 3, 0)),
+         {"upload": "pack", "upsample": "fancy"}, (1, 1, 0)),
         ("4K 4:2:2 fancy rgb upload=pack", data4k, "rgb",
-         {"upload": "pack", "upsample": "fancy"}, (1, 3, 0)),
+         {"upload": "pack", "upsample": "fancy"}, (1, 1, 0)),
         ("1080p 4:2:0 quant upload=pack", data1080, "quant", {"upload": "pack"}, (1, 0, 0)),
     ]
     for mod in kernels:
@@ -785,6 +1000,9 @@ def main() -> int:
     print(f"main paths of the standalone kernels: {len(paths)} decodes; launches "
           + ", ".join(f"K{i + 1} {n}" for i, n in enumerate(path_launches)))
     assert all(path_launches[i] > 0 for i in (3, 4, 5)), path_launches
+    # The two entropy="device" decodes here find their tables on the card:
+    # two launches of K2 and one of K3 each.
+    assert path_launches[1] == 4 and path_launches[2] == 2, path_launches
     for (name, data, stage, kw, want), out, counts in zip(paths, path_outs, path_counts):
         assert tuple(counts[3:]) == want, (name, counts)
         # The CPU path at the default upload: upload="pack" must change nothing.
@@ -817,6 +1035,7 @@ def main() -> int:
     print("on_error='zero', 256x384 4:2:0 R=1 with segment 40 corrupted: "
           "equal to the CPU port's salvage")
 
+    phase_done(6)
     # -- 7. timings ----------------------------------------------------------
     def stage_split(data, reps):
         """Mean host-clock ms of each stage of an entropy='device' RGB decode
@@ -839,35 +1058,34 @@ def main() -> int:
             if hdr.restart_interval:
                 plan = segments.build_plan(parsed)
                 t = mark("host parse + destuff and pack (build_plan)", t)
-                tens = plan_tensors((plan.streams,) + plan.kernel_tables, dev)
-                t = mark("H2D of the bits and tables", t)
-                out, err = entropy_device.decode_segments_device(*tens)
-                t = mark("K2", t)
+                tabs = device_entropy.device_tables(plan.cbase, plan.counts, plan.symbols, dev,
+                                                    scan=False)
+                tens = plan_tensors((plan.streams,) + plan.kernel_tables[:4], dev)
+                t = mark("H2D of the bits and maps, one copy (tables stay on the card)", t)
+                out, err = entropy_device.decode_segments_device(
+                    *tens, tabs.cbase, tabs.counts, tabs.symbols, lut=tabs.k2_lut)
+                t = mark("K2 row form", t)
                 nseg, mps = plan.n_segments, plan.mcus_per_segment
             else:
                 inp = segments.build_spec_scan_input(
                     parsed, sb_target=device_entropy.SCAN_SB_TARGET)
                 t = mark("host parse + destuff and windows (build_spec_scan_input)", t)
-                w, = plan_tensors((inp.windows,), dev)
-                tabs = plan_tensors((inp.dcslot_of_c, inp.acslot_of_c, inp.cbase,
-                                     inp.counts, inp.symbols, inp.comp_of_step,
-                                     inp.dc_slot_of_step, inp.ac_slot_of_step,
-                                     inp.seg_meta), dev)
-                t = mark("H2D of the bits and tables", t)
+                tabs = device_entropy.device_tables(inp.cbase, inp.counts, inp.symbols, dev,
+                                                    scan=True)
+                w, dc_c, ac_c, cm, dm, am = plan_tensors(
+                    (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
+                     inp.dc_slot_of_step, inp.ac_slot_of_step), dev)
+                t = mark("H2D of the bits and maps, one copy (tables stay on the card)", t)
                 bitpos, ok, _ = specsync_device.device_index_scan(
-                    w, inp.n_bits, *tabs[:5], sb=inp.subseq_bytes,
-                    maxrec=inp.maxrec, n_mcus=inp.n_mcus)
+                    w, inp.n_bits, dc_c, ac_c, tabs.cbase, tabs.counts, tabs.symbols,
+                    sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus,
+                    lut=tabs.k3_lut)
                 assert bool(ok)
                 t = mark("K3 whole scan (one call; ok read on the host)", t)
-                streams = specsync_device.gather_entropy_streams(
-                    w, bitpos, nw=inp.nw, spw=inp.spw, nws=inp.nws)
-                t = mark("stream gather", t)
-                out, err = entropy_device.decode_segments_device(
-                    streams, *tabs[5:], *tabs[2:5])
-                t = mark("K2", t)
-                dcb = specsync_device.dc_base_from_coefs(out, inp.t_last)
-                out = entropy_device.apply_dc_base(out, dcb, tabs[5])
-                t = mark("DC bases", t)
+                out, err = entropy_device.decode_mcus_at_bitpos(
+                    w, bitpos, inp.n_bits, cm, dm, am, tabs.cbase, tabs.counts, tabs.symbols,
+                    spw=inp.spw, lut=tabs.k2_lut)
+                t = mark("K2 fused form (decode + DC predictors)", t)
                 nseg, mps = hdr.n_mcus, 1
             geom_c = tuple((hdr.components[c].hsamp, hdr.components[c].vsamp)
                            for c in hdr.scan.comp_idx)
@@ -945,21 +1163,24 @@ def main() -> int:
 
     reps = 20
 
-    def in_turns(kernel, plain, k_iters, p_iters, warm_plain=True):
+    def in_turns(kernel, plain, k_iters, p_iters, warm_plain=True, plain_twice=True):
         """(kernel ms, plain ms, runs) in turns: plain, kernel, kernel, plain.
-        A plain version that takes seconds and ran before is not warmed up."""
+        A plain version that takes seconds and ran before is not warmed up,
+        and runs once (plain, kernel, kernel) with ``plain_twice`` off."""
         kernel()
         if warm_plain:
             plain()
         p_runs = [cuda_ms(plain, p_iters)]
         k_runs = [cuda_ms(kernel, k_iters), cuda_ms(kernel, k_iters)]
-        p_runs.append(cuda_ms(plain, p_iters))
-        return sum(k_runs) / 2, sum(p_runs) / 2, k_runs, p_runs
+        if plain_twice:
+            p_runs.append(cuda_ms(plain, p_iters))
+        return sum(k_runs) / 2, sum(p_runs) / len(p_runs), k_runs, p_runs
 
     t = plan_tensors((plan1080.streams,) + plan1080.kernel_tables, dev)
     zero_img = torch.zeros(t[0].shape[0], dtype=torch.int32, device=dev)
+    row_lut = entropy_device.symbol_lut(*t[5:])
     k2_ms, k2_plain_ms, kr, plr = in_turns(
-        lambda: entropy_device.decode_segments_device(*t),
+        lambda: entropy_device.decode_segments_device(*t, lut=row_lut),
         lambda: entropy_device.decode_segments_reference(
             t[0], zero_img, t[1], t[2], t[3], t[4][None], t[5][None], t[6][None],
             t[7][None]),
@@ -967,15 +1188,59 @@ def main() -> int:
     symbols1080 = symbol_count(scan1080.coefs)
     k2_out = entropy_device.decode_segments_device(*t)
     k2_bound = bound(nbytes(*t, *k2_out), symbols1080 * HUFFMAN_OPS_PER_SYMBOL)
-    print(f"K2 Huffman decode, 1080p 4:2:0 R=1 plan {tuple(t[0].shape)}, {symbols1080} "
-          f"symbols: kernel {k2_ms} ms runs {kr}; plain torch {k2_plain_ms} ms runs {plr}; "
+    k2_dev = device_ms(lambda: entropy_device.decode_segments_device(*t, lut=row_lut), 20)
+    k2_tables_ms = [cuda_ms(lambda: entropy_device.symbol_lut(*t[5:]), 50) for _ in range(2)]
+    print(f"K2 Huffman decode, row form, 1080p 4:2:0 R=1 plan {tuple(t[0].shape)}, "
+          f"{symbols1080} symbols, symbol tables given: kernel {k2_ms} ms runs {kr} (device "
+          f"time by kernel {k2_dev}); plain torch {k2_plain_ms} ms runs {plr}; "
           f"{bound_text(k2_bound)}  [{card}]")
+    print(f"K2's table kernel alone (64 blocks of 1024 threads, once per table set): "
+          f"{sum(k2_tables_ms) / 2} ms runs {k2_tables_ms}  [{card}]")
+    k2_tables_ms = sum(k2_tables_ms) / 2
+
+    # The fused form on the scan's inputs, the chain it replaces beside it
+    # (gather -> row form -> DC bases, at the engine's row width, tables
+    # given to both).
+    fused_ms = {}
+    for name, data, syms in (("1080p 4:2:0", data1080, symbols1080),
+                             ("4K 4:2:2", data4k, symbol_count(scan4k.coefs))):
+        inp, ft = fused_inputs(data)
+        w, dc_c, ac_c, cb, cn, sy, cm, dm, am, _ = ft
+        bitpos, ok, _ = specsync_device.device_index_scan(
+            w, inp.n_bits, dc_c, ac_c, cb, cn, sy, sb=inp.subseq_bytes, maxrec=inp.maxrec,
+            n_mcus=inp.n_mcus)
+        assert bool(ok)
+        lut = entropy_device.symbol_lut(cb, cn, sy)
+
+        def fused():
+            return entropy_device.decode_mcus_at_bitpos(
+                w, bitpos, inp.n_bits, cm, dm, am, cb, cn, sy, spw=inp.spw, lut=lut)
+
+        def chain():
+            return old_chain(inp, ft, bitpos, (cb, cn, sy), inp.nw, lut=lut)
+
+        def plain():
+            return entropy_device.decode_mcus_at_bitpos_reference(
+                w, bitpos, inp.n_bits, cm, dm, am, cb, cn, sy, spw=inp.spw)
+
+        ms, plain_ms, kr, plr = in_turns(fused, plain, 50, 1, warm_plain=False,
+                                         plain_twice=False)
+        chain()
+        chain_runs = [cuda_ms(chain, 20), cuda_ms(chain, 20)]
+        b = bound(nbytes(w, bitpos, cm, dm, am, cb, cn, sy, *fused()),
+                  syms * HUFFMAN_OPS_PER_SYMBOL)
+        print(f"K2 fused form (decode out of the scan's windows + DC predictors, 2 launches), "
+              f"{name}, windows {tuple(w.shape)}, {inp.n_mcus} MCUs, {syms} symbols: kernel "
+              f"{ms} ms runs {kr} (device time by kernel {device_ms(fused, 20)}); the chain "
+              f"gather -> row form -> DC bases {sum(chain_runs) / 2} ms runs {chain_runs}; "
+              f"plain torch {plain_ms} ms runs {plr}; {bound_text(b)}  [{card}]")
+        fused_ms[name] = (ms, plain_ms, b, sum(chain_runs) / 2)
 
     a, kw = scan_inputs(data1080)
     k3_ms, k3_plain_ms, kr, plr = in_turns(
         lambda: specsync_device.device_index_scan(*a, **kw),
         lambda: specsync_device.device_index_scan(*a, **kw, plain=True), 50, 1,
-        warm_plain=False)
+        warm_plain=False, plain_twice=False)
     k3_out = specsync_device.device_index_scan(*a, **kw)
     k3_bound = bound(nbytes(*(x for x in a if isinstance(x, torch.Tensor)), *k3_out),
                      symbols1080 * HUFFMAN_OPS_PER_SYMBOL)
@@ -986,12 +1251,14 @@ def main() -> int:
           f"per pass {k3_lanes}; one call: the table kernel and one cooperative kernel): "
           f"kernel {k3_ms} ms runs {kr}; plain torch {k3_plain_ms} ms runs {plr}; "
           f"{bound_text(k3_bound)}, {chain}  [{card}]")
-    lib, lut_raw = specsync_device._kernel(), specsync_device._lut_scratch(dev)
+    lib = specsync_device._kernel()
+    lut_raw = torch.empty(entropy_device.LUT_IMAGE, dtype=torch.int16, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     k3_tables_ms = [cuda_ms(lambda: lib.jgt_specsync_lut(
         *(t.data_ptr() for t in a[4:]), lut_raw.data_ptr(), stream), 50) for _ in range(2)]
-    print(f"K3's table kernel alone (64 blocks of 1024 threads, rebuilt in every scan and "
-          f"inside the time above): {sum(k3_tables_ms) / 2} ms runs {k3_tables_ms}  [{card}]")
+    print(f"K3's table kernel alone (64 blocks of 1024 threads; inside the time above, which "
+          f"is a scan that was not given its tables; the engine builds them once per table "
+          f"set): {sum(k3_tables_ms) / 2} ms runs {k3_tables_ms}  [{card}]")
     k3_tables_ms = sum(k3_tables_ms) / 2
     a4k, kw4k = scan_inputs(data4k)
     symbols4k = symbol_count(scan4k.coefs)
@@ -1018,7 +1285,7 @@ def main() -> int:
             rounds = int(got[2][0])
             assert not ok or np.array_equal(got[0].cpu().numpy(), serial), (name, pin)
             assert ok or pin is not None, name
-            runs = [cuda_ms(lambda: specsync_device.device_index_scan(*sa, **skw), 50)
+            runs = [cuda_ms(lambda: specsync_device.device_index_scan(*sa, **skw), 20)
                     for _ in range(2)]
             print(f"K3 subsequence sweep {name}, {label} SB {skw['sb']} (windows "
                   f"{tuple(sa[0].shape)}, maxrec {skw['maxrec']}): ok {ok}, {rounds} rounds, "
@@ -1039,7 +1306,7 @@ def main() -> int:
             assert not ok or np.array_equal(got[0].cpu().numpy(), serial), (quality, mode)
             assert ok or target != device_entropy.SCAN_SB_TARGET, (quality, mode)
             worst[target] = max(worst.get(target, 0), rounds)
-            runs = [cuda_ms(lambda: specsync_device.device_index_scan(*sa, **skw), 50)
+            runs = [cuda_ms(lambda: specsync_device.device_index_scan(*sa, **skw), 20)
                     for _ in range(2)]
             print(f"K3 rounds sweep 1080p {mode} quality {quality}, {len(data)} B, aimed "
                   f"at {target}: SB {skw['sb']} (windows {tuple(sa[0].shape)}), ok {ok}, "
@@ -1066,31 +1333,40 @@ def main() -> int:
     k4_ms, k4_plain_ms, k4_bound = time_k4("1080p 4:2:0", pack1080, 1)
     time_k4("4K 4:2:2", pack4k, 1)
 
-    def time_planes(name, kernel_fn, plain_fn, ops_per_block):
+    def time_planes(name, kernel_fn, plain_fn, ops_per_block, launches):
         """The three planes of the 1080p 4:2:0 frame as the main path hands
-        them over (strided views of blocks), one launch per plane; beside
-        it the same planes as contiguous SoA tensors."""
+        them over (strided views of blocks); ``kernel_fn`` takes the lists of
+        planes and tables.  Beside it the same planes as contiguous SoA
+        tensors."""
         views = [blocks_as_soa(c) for c in k6_planes]
-        outs = [kernel_fn(v, q) for v, q in zip(views, k6_qts)]
+        tables = list(k6_qts)
+        outs = kernel_fn(views, tables)
         ms, plain_ms, kr, plr = in_turns(
-            lambda: [kernel_fn(v, q) for v, q in zip(views, k6_qts)],
-            lambda: [plain_fn(v, q) for v, q in zip(views, k6_qts)], 50, 5)
+            lambda: kernel_fn(views, tables),
+            lambda: [plain_fn(v, q) for v, q in zip(views, tables)], 50, 5)
         soas = [v.contiguous() for v in views]
-        soa_ms = cuda_ms(lambda: [kernel_fn(v, q) for v, q in zip(soas, k6_qts)], 50)
+        soa_ms = cuda_ms(lambda: kernel_fn(soas, tables), 50)
         b = bound(nbytes(*k6_planes, *k6_qts, *outs),
                   sum(c.numel() for c in k6_planes) // 64 * ops_per_block)
         print(f"{name}, the three planes of 1080p 4:2:0 "
-              f"{[tuple(c.shape[:2]) for c in k6_planes]} blocks, 3 launches: kernel "
-              f"{ms} ms runs {kr} (contiguous SoA planes: {soa_ms} ms); plain torch "
+              f"{[tuple(c.shape[:2]) for c in k6_planes]} blocks, {launches}: kernel "
+              f"{ms} ms runs {kr} (contiguous SoA planes: {soa_ms} ms; device time by kernel "
+              f"{device_ms(lambda: kernel_fn(views, tables), 20)}); plain torch "
               f"{plain_ms} ms runs {plr}; {bound_text(b)}  [{card}]")
         return ms, plain_ms, b
 
     k5_ms, k5_plain_ms, k5_bound = time_planes(
-        "K5 islow plane IDCT", idct_islow_plane.dequant_idct_islow_plane_soa,
-        idct_islow_plane.dequant_idct_islow_plane_soa_reference, ISLOW_OPS_PER_BLOCK)
+        "K5 islow plane IDCT", idct_islow_plane.dequant_idct_islow_planes_soa,
+        idct_islow_plane.dequant_idct_islow_plane_soa_reference, ISLOW_OPS_PER_BLOCK,
+        "1 launch")
+    k5_each = cuda_ms(lambda: [idct_islow_plane.dequant_idct_islow_plane_soa(blocks_as_soa(c), q)
+                               for c, q in zip(k6_planes, k6_qts)], 50)
+    print(f"K5 as one call per plane (3 launches of the same kernel): {k5_each} ms  [{card}]")
     k6_ms, k6_plain_ms, k6_bound = time_planes(
-        "K6 float plane IDCT", idct_float.dequant_idct_float_plane_soa,
-        idct_float.dequant_idct_float_plane_soa_reference, FLOAT_OPS_PER_BLOCK)
+        "K6 float plane IDCT",
+        lambda planes, tables: [idct_float.dequant_idct_float_plane_soa(v, q)
+                                for v, q in zip(planes, tables)],
+        idct_float.dequant_idct_float_plane_soa_reference, FLOAT_OPS_PER_BLOCK, "3 launches")
 
     # One library call for K6's function: the IDCT as a transposed
     # convolution of the 64 coefficient planes with stride 8, the quant table
@@ -1204,10 +1480,9 @@ def main() -> int:
             t = mark("assembly into blocks", t)
             spec = pipeline.PipelineSpec.from_header(hdr)
             qts = plan_tensors([hdr.quant_for(c).values for c in hdr.components], dev)
-            planes = [
-                idct_islow_plane.dequant_idct_islow_plane_soa(blocks_as_soa(c), q)
-                for c, q in zip(coefs, qts)]
-            t = mark("K5 x3 (with the quant tables' upload)", t)
+            planes = idct_islow_plane.dequant_idct_islow_planes_soa(
+                [blocks_as_soa(c) for c in coefs], list(qts))
+            t = mark("K5, one launch (with the quant tables' upload)", t)
             up = [color_ops.upsample_nearest(p, *dec)[: spec.height, : spec.width]
                   for p, dec in zip(planes, spec.comp_decs)]
             rgb = color_ops.ycbcr_to_rgb_exact(*up)
@@ -1231,6 +1506,7 @@ def main() -> int:
         print(f"  sum: {sum(split.values())} ms")
     busy_share(data1080, card)
 
+    phase_done(7)
     def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None, **more):
         return {
             "name": stem,
@@ -1251,7 +1527,12 @@ def main() -> int:
         entry(0, "pixel_fused", "jpeg_gpu_tpu/ops/pixel_fused.py:237",
               max_err, k_ms, p_ms, k1_bound),
         entry(1, "entropy_decode", "jpeg_gpu_tpu/ops/entropy_device.py:128",
-              k2_err, k2_ms, k2_plain_ms, k2_bound),
+              max(k2_err, k2_fused_err), k2_ms, k2_plain_ms, k2_bound,
+              entries=["jgt_entropy_decode", "jgt_entropy_decode_fused", "jgt_entropy_lut"],
+              tables_kernel_ms=k2_tables_ms, fused_ms=fused_ms["1080p 4:2:0"][0],
+              fused_plain_ms=fused_ms["1080p 4:2:0"][1],
+              fused_bound_ms=fused_ms["1080p 4:2:0"][2]["bound_ms"],
+              fused_replaces_chain_ms=fused_ms["1080p 4:2:0"][3]),
         entry(2, "specsync_scan", "jpeg_gpu_tpu/ops/specsync_device.py:98",
               k3_err, k3_ms, k3_plain_ms, k3_bound, tables_kernel_ms=k3_tables_ms),
         entry(3, "pack_expand", "jpeg_gpu_tpu/ops/pack_device.py:42",

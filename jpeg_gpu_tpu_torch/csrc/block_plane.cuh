@@ -6,10 +6,15 @@
 // which covers both layouts the engine holds without a transposing copy:
 //   SoA planes (n, 64, vb, hb):  sj = vb * hb, sr = hb, sc = 1;
 //   blocks     (n, vb, hb, 8, 8): sj = 1,      sr = hb * 64, sc = 64.
-// Output: (n, vb * 8, hb * 8) uint8, row-major.  One thread per block: in
-// the SoA layout neighbouring threads read neighbouring addresses of each
+// Output: (n, vb * 8, hb * 8) uint8, row-major.
+//
+// Two ways to spread the work.  One thread per block and one launch per
+// plane (PlaneArgs, plane_block, load_block, store_row8: K6 today): in the
+// SoA layout neighbouring threads read neighbouring addresses of each
 // coefficient plane; in the block layout a thread reads its own 128
-// contiguous bytes with 16-byte loads.
+// contiguous bytes with 16-byte loads.  Or one launch for up to kMaxPlanes
+// planes, each with its own table and output (PlaneSet: K5), the grid laid
+// over tiles of kTileBlocks blocks, plane after plane.
 
 #pragma once
 
@@ -79,6 +84,66 @@ __device__ __forceinline__ void store_row8(const PlaneArgs& a, int n, int r,
 __device__ __forceinline__ void load_quant(const PlaneArgs& a, int* q) {
   for (int j = threadIdx.x; j < 64; j += kPlaneThreads) q[j] = a.quant[j];
   __syncthreads();
+}
+
+// Up to kMaxPlanes planes for one launch, passed to the kernel by value.
+constexpr int kMaxPlanes = 4;
+constexpr int kTileBlocks = 32;   // 8x8 blocks a CUDA block takes
+
+struct PlaneDesc {
+  const int16_t* coefs;
+  const int32_t* quant;   // (64,) int32, one table for all n
+  uint8_t* out;           // (n, vb * 8, hb * 8)
+  long long sn, sj, sr, sc;
+  int n, vb, hb;
+  int tiles;              // per leading index: ceil(vb * hb / kTileBlocks)
+};
+
+struct PlaneSet {
+  PlaneDesc plane[kMaxPlanes];
+  int first_tile[kMaxPlanes + 1];   // plane i owns CUDA blocks [first_tile[i], first_tile[i + 1])
+  int nplanes;
+};
+
+// The plane, leading index and first block of CUDA block `tile`.
+__device__ __forceinline__ const PlaneDesc& plane_of_tile(const PlaneSet& set, int tile,
+                                                          int& n, int& block0) {
+  int i = 0;
+  while (i + 1 < set.nplanes && tile >= set.first_tile[i + 1]) ++i;
+  const PlaneDesc& p = set.plane[i];
+  const int local = tile - set.first_tile[i];
+  n = local / p.tiles;
+  block0 = (local % p.tiles) * kTileBlocks;
+  return p;
+}
+
+// Fill `set` from `d`, ten values per plane: the three pointers, the four
+// element strides, n, vb, hb.  Returns the number of CUDA blocks, or -1 for a
+// shape the kernels do not take.
+inline long long make_plane_set(const long long* d, int nplanes, PlaneSet& set) {
+  if (nplanes < 1 || nplanes > kMaxPlanes) return -1;
+  long long total = 0;
+  set.nplanes = nplanes;
+  for (int i = 0; i < nplanes; ++i, d += 10) {
+    PlaneDesc& p = set.plane[i];
+    p.coefs = reinterpret_cast<const int16_t*>(d[0]);
+    p.quant = reinterpret_cast<const int32_t*>(d[1]);
+    p.out = reinterpret_cast<uint8_t*>(d[2]);
+    p.sn = d[3];
+    p.sj = d[4];
+    p.sr = d[5];
+    p.sc = d[6];
+    if (d[7] < 1 || d[8] < 1 || d[9] < 1 || d[8] * d[9] > 0x7FFFFFFF) return -1;
+    p.n = int(d[7]);
+    p.vb = int(d[8]);
+    p.hb = int(d[9]);
+    p.tiles = int((d[8] * d[9] + kTileBlocks - 1) / kTileBlocks);
+    set.first_tile[i] = int(total);
+    total += (long long)p.n * p.tiles;
+    if (total > 0x7FFFFFFF) return -1;
+  }
+  set.first_tile[nplanes] = int(total);
+  return total;
 }
 
 inline dim3 plane_grid(int n, int vb, int hb) {

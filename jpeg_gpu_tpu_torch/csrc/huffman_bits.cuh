@@ -1,11 +1,6 @@
-// Bit window and canonical-rank Huffman decode shared by K2 and K3.
-//
-// The window is 64 bits, MSB-aligned, in two 32-bit halves (hi, lo);
-// `navail` counts its valid bits and `wp` is the next word to fetch.  Bits
-// below `navail` are zero, so the window always shows the stream from the
-// current bit on.  Every shift here is logical and a shift by 32 gives 0,
-// as in jpeg_gpu_tpu/ops/entropy_device.py:_lsr_safe/_shl_safe (a 32-bit
-// shift by 32 is undefined in C++, so the 32 case is spelled out).
+// The canonical-rank Huffman decode shared by K2 and K3: the tables of
+// host/segments.py in shared memory and decode_symbol, which the kernels'
+// symbol tables (csrc/symbol_lut.cuh) are built from and fall back to.
 
 #pragma once
 
@@ -15,14 +10,6 @@ namespace jgt {
 
 constexpr int kErrBadCode = 1;
 constexpr int kErrOverrun = 2;
-
-__device__ __forceinline__ uint32_t lsr_safe(uint32_t x, int n) {
-  return n >= 32 ? 0u : (x >> n);
-}
-
-__device__ __forceinline__ uint32_t shl_safe(uint32_t x, int n) {
-  return n >= 32 ? 0u : (x << n);
-}
 
 // One table slot in shared memory: the rows of host/segments.py:
 // _table_tensors for one slot, with the packed entries of one sublane.
@@ -59,33 +46,6 @@ __device__ __forceinline__ void load_slots(Slot* slots, const int32_t* cbase,
               threadIdx.x, blockDim.x);
 }
 
-struct Window {
-  uint32_t hi = 0, lo = 0;
-  int navail = 0;
-  int wp = 0;
-
-  // Top the window back above 32 bits with one word of `row` (word w at
-  // row[w * stride]); a word index outside [0, nwords) reads 0.
-  __device__ __forceinline__ void refill(const int32_t* row, int nwords,
-                                         int stride) {
-    if (navail > 32) return;
-    const uint32_t w = (wp >= 0 && wp < nwords)
-                           ? static_cast<uint32_t>(row[static_cast<int64_t>(wp) * stride])
-                           : 0u;
-    hi |= lsr_safe(w, navail);
-    lo |= shl_safe(w, 32 - navail);
-    navail += 32;
-    wp += 1;
-  }
-
-  // Advance by n bits, 0 <= n <= 31.
-  __device__ __forceinline__ void consume(int n) {
-    hi = shl_safe(hi, n) | lsr_safe(lo, 32 - n);
-    lo = shl_safe(lo, n);
-    navail -= n;
-  }
-};
-
 // Canonical rank of the code at the top of `hi` (spec F.2.2.3 as a sum of
 // independent per-length terms, ops/entropy_device.py:decode_symbol):
 //   rank = sum_L clamp(top_L(hi) - cbase[L], 0, counts[L]).
@@ -115,14 +75,6 @@ __device__ __forceinline__ void decode_symbol(uint32_t hi, const Slot& t,
   const uint32_t ent = (t.entries[idx >> 1] >> ((idx & 1) * 16)) & 0xFFFFu;
   len = window_invalid(hi, t) ? 17 : static_cast<int>(ent >> 8);
   sym = static_cast<int>(ent & 0xFFu);
-}
-
-// The `size` amplitude bits after a `len`-bit code, EXTENDed (spec F.2.2.1).
-__device__ __forceinline__ int extend(uint32_t hi, int len, int size) {
-  const int raw = static_cast<int>(lsr_safe(hi << min(len, 31), 32 - size));
-  const int half = 1 << max(size - 1, 0);
-  const int full = 1 << min(size, 30);
-  return (size > 0 && raw < half) ? raw - full + 1 : raw;
 }
 
 }  // namespace jgt

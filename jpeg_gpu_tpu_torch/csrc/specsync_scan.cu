@@ -43,7 +43,9 @@
 //   150 instructions): the window's top 10 bits index a first level whose
 //   16-bit entry holds what the step needs ready made (chain_entry); a code
 //   of more than 10 bits takes a second load from a 64-entry table of its
-//   prefix.  A small kernel builds them before the scan (scan_lut_kernel):
+//   prefix.  A small kernel builds them (scan_lut_kernel, the scheme of
+//   csrc/symbol_lut.cuh), before the scan or once per table set when the
+//   caller keeps them:
 //   an entry answers only where the rank and the invalid test agree at both
 //   ends of the prefix's range -- both are monotone in the window, so every
 //   window with that prefix decodes alike -- and is a miss otherwise, which
@@ -76,24 +78,22 @@
 #include <stdint.h>
 
 #include "huffman_bits.cuh"
+#include "symbol_lut.cuh"
 #include "tile_stage.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using jgt::kLutBits;
+using jgt::kLutMiss;
+using jgt::kLutSub;
+using jgt::kSlotEntries;
+using jgt::kSubSize;
 using jgt::kWarp;
 
 constexpr int kLanes = 1024;             // lanes per batch (8 x 128)
 constexpr int kTilesPerBatch = kLanes / kWarp;
-constexpr int kLutBits = 10;             // first level: the window's top 10 bits
-constexpr int kLutSize = 1 << kLutBits;
-constexpr int kSubBits = 6;              // second level: the 6 bits after them
-constexpr int kSubSize = 1 << kSubBits;
-constexpr int kSubTables = 16;           // second-level tables per slot
-constexpr int kSlotEntries = kLutSize + kSubTables * kSubSize;   // one slot's tables
-constexpr uint32_t kLutMiss = 0u;        // no answer: use decode_symbol
-constexpr uint32_t kLutSub = 0x8000u;    // first-level entry: go to the table at byte (entry & 0x7FFF)
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // What the step needs of a decoded symbol, in 15 bits: an invalid code
@@ -111,69 +111,20 @@ __device__ __forceinline__ uint32_t chain_entry(int sym, int len) {
          static_cast<uint32_t>(sym >> 4) << 10 | (sym == 0 ? 0x4000u : 0u);
 }
 
-// Every window whose top `bits` bits are those of `lo` decodes alike if the
-// rank and the invalid test agree at both ends of that range: both are
-// monotone in the window.  Then the chain entry, else kLutMiss.
-__device__ __forceinline__ uint32_t range_entry(uint32_t lo, int bits, const jgt::Slot& t) {
-  const uint32_t hi = lo | ((1u << (32 - bits)) - 1u);
-  const bool alike = jgt::symbol_rank(lo, t) == jgt::symbol_rank(hi, t) &&
-                     jgt::window_invalid(lo, t) == jgt::window_invalid(hi, t);
-  int sym, len;
-  jgt::decode_symbol(lo, t, sym, len);
-  return alike ? chain_entry(sym, len) : kLutMiss;
-}
+struct ChainEntry {
+  __device__ __forceinline__ uint32_t operator()(int sym, int len) const {
+    return chain_entry(sym, len);
+  }
+};
 
-// The tables of one (sublane, slot), kSlotEntries u16 at lut[(sublane * 8 +
-// slot) * kSlotEntries]: first 1024 first-level entries, one per 10-bit
-// prefix -- the chain entry where the prefix decides the symbol (codes of up
-// to 10 bits, and ranges that are invalid throughout); else kLutSub | the
-// byte offset of the j-th second-level table, where this is the j-th such
-// prefix in rising order; else (more than 16 such prefixes) kLutMiss.  Then 16 second-level
-// tables of 64 entries, one per 16-bit prefix under its 10-bit prefix: the
-// chain entry (a code has at most 16 bits), or kLutMiss where even that
-// range does not decode alike, which only tables that are no Huffman tables
-// produce.  After the 64 slots' tables come 64 flags, [sublane][slot]: 1
-// where the slot's tables answer every window.  One block per (sublane,
-// slot), 1024 threads.
-__global__ void __launch_bounds__(kLutSize)
+// The symbol tables of csrc/symbol_lut.cuh with chain entries, one block per
+// (sublane, slot), 1024 threads.
+__global__ void __launch_bounds__(jgt::kLutSize)
 scan_lut_kernel(const int32_t* __restrict__ cbase,
                 const int32_t* __restrict__ counts,
                 const int32_t* __restrict__ symbols,
                 uint16_t* __restrict__ lut) {
-  __shared__ jgt::Slot t;
-  __shared__ int warp_count[kLutSize / kWarp];
-  __shared__ int sub_prefix[kSubTables];
-  const int tid = threadIdx.x, lane = tid & (kWarp - 1), warp = tid / kWarp;
-  const int slot = blockIdx.x & 7, sublane = blockIdx.x >> 3;
-  jgt::load_slot(&t, cbase, counts, symbols, slot, sublane, tid, blockDim.x);
-  if (tid < kSubTables) sub_prefix[tid] = -1;
-  __syncthreads();
-  uint32_t entry = range_entry(static_cast<uint32_t>(tid) << (32 - kLutBits), kLutBits, t);
-  // Number the prefixes that need a second level, in rising order.
-  const unsigned deep = __ballot_sync(kFull, entry == kLutMiss);
-  if (lane == 0) warp_count[warp] = __popc(deep);
-  __syncthreads();
-  if (entry == kLutMiss) {
-    int j = __popc(deep & ((1u << lane) - 1u));
-    for (int i = 0; i < warp; ++i) j += warp_count[i];
-    if (j < kSubTables) {
-      sub_prefix[j] = tid;
-      entry = kLutSub | static_cast<uint32_t>((kLutSize + j * kSubSize) * sizeof(uint16_t));
-    }
-  }
-  uint16_t* out = lut + static_cast<size_t>(blockIdx.x) * kSlotEntries;
-  out[tid] = static_cast<uint16_t>(entry);
-  __syncthreads();
-  static_assert(kSubTables * kSubSize == kLutSize, "one second-level entry per thread");
-  const int prefix = sub_prefix[tid / kSubSize];
-  const uint32_t second =
-      prefix < 0 ? kLutMiss
-                 : range_entry((static_cast<uint32_t>(prefix) << kSubBits | (tid % kSubSize)) << 16,
-                               kLutBits + kSubBits, t);
-  out[kLutSize + tid] = static_cast<uint16_t>(second);
-  // Complete: no window of this slot is left to decode_symbol.
-  const int holes = __syncthreads_or(entry == kLutMiss || (prefix >= 0 && second == kLutMiss));
-  if (tid == 0) lut[static_cast<size_t>(64) * kSlotEntries + blockIdx.x] = holes ? 0 : 1;
+  jgt::build_slot_lut(cbase, counts, symbols, lut, blockIdx.x, ChainEntry());
 }
 
 // One warp's shared memory.
@@ -296,7 +247,7 @@ struct LaneState {
 // Measured on the card, a step of this loop costs its instruction count
 // times about five cycles: one warp on an SM finds nothing to overlap.  So
 // the step has no branch, and as few instructions as the rules allow:
-// * the window is jgt::Window's (64 bits at bit p, MSB-aligned in (hi, lo),
+// * the window is the reference's (64 bits at bit p, MSB-aligned in (hi, lo),
 //   `navail` of them valid, topped up with word `wp` once 32 or fewer are
 //   left; a word outside the row reads 0), but the next word is loaded a
 //   step ahead and merged by a clamped shift (0 while more than 32 bits are
@@ -605,7 +556,7 @@ Tables make_tables(const void* dcslot, const void* acslot, const void* cbase,
 // Enqueue the symbol tables' build into `lut`: (8, 8, 2048) u16 and 64 flags.
 int launch_lut(const void* cbase, const void* counts, const void* symbols, void* lut,
                cudaStream_t stream) {
-  scan_lut_kernel<<<64, kLutSize, 0, stream>>>(
+  scan_lut_kernel<<<64, jgt::kLutSize, 0, stream>>>(
       static_cast<const int32_t*>(cbase), static_cast<const int32_t*>(counts),
       static_cast<const int32_t*>(symbols), static_cast<uint16_t*>(lut));
   return int(cudaGetLastError());
@@ -630,9 +581,11 @@ extern "C" long long jgt_specsync_work_words(int nbatch) {
 // index_scan_kernel for the scratch and the outputs.  windows (BS, NWS, 8,
 // 128) i32, NWS at least the words of SB bytes and two more; dcslot/acslot
 // (bpm,) i32; cbase (8, 16), counts (8, 17), symbols (8, 8, 128) i32; lut
-// 8 * 8 * 2048 + 64 u16 scratch.  Launches two kernels on `stream`, the
-// tables' and one cooperative kernel, and never synchronises.  Returns the
-// first CUDA error, 0 if none.
+// 8 * 8 * 2048 + 64 u16: scratch that this call fills with the symbol
+// tables, or with lut_given != 0 the tables an earlier jgt_specsync_lut
+// built from the same cbase, counts and symbols.  Launches the tables'
+// kernel (unless they are given) and one cooperative kernel on `stream`, and
+// never synchronises.  Returns the first CUDA error, 0 if none.
 extern "C" int jgt_specsync_index_scan(const void* windows, const void* dcslot,
                                        const void* acslot, const void* cbase,
                                        const void* counts, const void* symbols,
@@ -640,13 +593,14 @@ extern "C" int jgt_specsync_index_scan(const void* windows, const void* dcslot,
                                        void* round_lanes, void* bitpos, void* ok,
                                        void* stats, int nbatch, int nws, int nbits,
                                        int sb, int bpm, int maxrec, int n_mcus,
-                                       int max_rounds, int from_entry, void* stream_) {
+                                       int max_rounds, int from_entry, int lut_given,
+                                       void* stream_) {
   if (check_geometry(nbatch, nws, sb, bpm, maxrec) ||
       (!from_entry && (maxrec <= 0 || n_mcus <= 0 || max_rounds < 0)))
     return int(cudaErrorInvalidValue);
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   Tables tab = make_tables(dcslot, acslot, cbase, counts, symbols, lut, bpm);
-  int rc = launch_lut(cbase, counts, symbols, lut, stream);
+  int rc = lut_given ? 0 : launch_lut(cbase, counts, symbols, lut, stream);
   if (rc) return rc;
   // As many one-warp blocks as the card holds at once, at most one a tile.
   const size_t smem = smem_bytes(nws, maxrec, bpm);

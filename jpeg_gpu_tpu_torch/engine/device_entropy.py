@@ -3,8 +3,11 @@
 The port of ``jpeg_gpu_tpu/engine/device_entropy.py``.  The host only
 parses markers and destuffs and packs the entropy bits (host/segments.py);
 the device runs the index scan for streams without restart markers (K3),
-the Huffman decode (K2), the DC-base repair and the assembly into the
-coefficient layouts the pixel pipeline consumes.  For the PACK upload the
+the Huffman decode with its DC predictors (K2) and the assembly into the
+coefficient layouts the pixel pipeline consumes.  A table set's tensors and
+the symbol tables K2 and K3 build from them stay on the card
+(:func:`device_tables`), so a frame uploads its bits and a few small maps in
+one copy.  For the PACK upload the
 host does the Huffman work and the device expands the packed (run, value)
 stream (K4, :func:`expand_pack_device`).
 """
@@ -54,34 +57,61 @@ class DeviceEntropyResult:
     specsync_stats: Optional[np.ndarray] = None
 
 
+@dataclasses.dataclass
+class DeviceTables:
+    """One Huffman table set on a device: the rank tables as tensors and the
+    symbol tables the kernels build from them (None on the CPU, whose plain
+    versions have no use for them)."""
+
+    cbase: torch.Tensor
+    counts: torch.Tensor
+    symbols: torch.Tensor
+    k2_lut: Optional[torch.Tensor]
+    k3_lut: Optional[torch.Tensor]
+    arrays: tuple    # the host arrays, kept alive so that their ids stay theirs
+
+
+_DEVICE_TABLES: dict = {}
+
+
+def device_tables(cbase, counts, symbols, device, scan: bool) -> DeviceTables:
+    """The table set (host/segments.py:_table_tensors' read-only, memoized
+    arrays) on ``device``: uploaded, and its symbol tables built, once per
+    set and device; K3's only when a scan (``scan``) first asks."""
+    device = torch.device(device)
+    key = (id(cbase), id(counts), id(symbols), device.type, device.index)
+    tabs = _DEVICE_TABLES.get(key)
+    if tabs is None or cbase.flags.writeable:
+        t = plan_tensors((cbase, counts, symbols), device)
+        k2 = entropy_device.symbol_lut(*t) if device.type == "cuda" else None
+        tabs = DeviceTables(*t, k2, None, (cbase, counts, symbols))
+        if not cbase.flags.writeable:   # only arrays that cannot change are kept
+            if len(_DEVICE_TABLES) >= 64:
+                _DEVICE_TABLES.clear()
+            _DEVICE_TABLES[key] = tabs
+    if scan and tabs.k3_lut is None and device.type == "cuda":
+        tabs.k3_lut = specsync_device.build_scan_lut(tabs.cbase, tabs.counts, tabs.symbols)
+    return tabs
+
+
 def _spec_decode_kernel_out(inp: SpecScanInput, device):
-    """Device index scan -> stream realignment on the device -> K2 ->
-    derived DC bases.  Returns (kernel_out, err, ok, stats); the outputs
-    are garbage unless ok (the caller then falls back)."""
-    windows, = plan_tensors((inp.windows,), device)
-    dcslot_c, acslot_c, cbase, counts, symbols = plan_tensors(
-        (inp.dcslot_of_c, inp.acslot_of_c, inp.cbase, inp.counts, inp.symbols), device
+    """Device index scan (K3) -> K2's fused form, which reads the scan's
+    windows at the MCUs' bit positions and applies the DC predictors.
+    Returns (kernel_out, err, ok, stats); the outputs are garbage unless ok
+    (the caller then falls back)."""
+    tabs = device_tables(inp.cbase, inp.counts, inp.symbols, device, scan=True)
+    windows, dcslot_c, acslot_c, comp_map, dcslot_map, acslot_map = plan_tensors(
+        (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
+         inp.dc_slot_of_step, inp.ac_slot_of_step), device
     )
     bitpos, ok, stats = specsync_device.device_index_scan(
-        windows, inp.n_bits, dcslot_c, acslot_c, cbase, counts, symbols,
-        sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus,
+        windows, inp.n_bits, dcslot_c, acslot_c, tabs.cbase, tabs.counts, tabs.symbols,
+        sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus, lut=tabs.k3_lut,
     )
-    # Row-width check: every pseudo segment, plus its worst-case one-word
-    # refill overshoot, must fit the nw-word rows the gather builds, or the
-    # decode would read zeros mid-segment.
-    seg_bits = torch.diff(bitpos, append=bitpos.new_tensor([inp.n_bits]))
-    ok = ok & (seg_bits.max() + 63 <= inp.nw * 32)
-    streams = specsync_device.gather_entropy_streams(
-        windows, bitpos, nw=inp.nw, spw=inp.spw, nws=inp.nws
+    out, err = entropy_device.decode_mcus_at_bitpos(
+        windows, bitpos, inp.n_bits, comp_map, dcslot_map, acslot_map,
+        tabs.cbase, tabs.counts, tabs.symbols, spw=inp.spw, lut=tabs.k2_lut,
     )
-    comp_map, dcslot_map, acslot_map, seg_meta = plan_tensors(
-        (inp.comp_of_step, inp.dc_slot_of_step, inp.ac_slot_of_step, inp.seg_meta), device
-    )
-    out, err = entropy_device.decode_segments_device(
-        streams, comp_map, dcslot_map, acslot_map, seg_meta, cbase, counts, symbols,
-    )
-    dcb = specsync_device.dc_base_from_coefs(out, inp.t_last)
-    out = entropy_device.apply_dc_base(out, dcb, comp_map)
     return out, err, ok, stats
 
 
@@ -89,8 +119,8 @@ def _spec_decode_try(parsed: ParsedJpeg, device):
     """Decode a stream without restart markers through the device index scan.
 
     Returns (kernel_out, err, stats) with the DC bases applied, or None
-    when the scan did not converge, overflowed its records, misfit the row
-    width, or the stream is out of range: the caller then falls back to
+    when the scan did not converge, overflowed its records, or the stream
+    is out of range: the caller then falls back to
     the serial host scan (build_plan_auto)."""
     try:
         inp = build_spec_scan_input(parsed, sb_target=SCAN_SB_TARGET)
@@ -156,8 +186,10 @@ def entropy_decode_device(
     else:
         plan = build_plan_auto(parsed)
         plan_nseg, plan_mps = plan.n_segments, plan.mcus_per_segment
-        tensors = plan_tensors((plan.streams,) + plan.kernel_tables, device)
-        kernel_out, err = entropy_device.decode_segments_device(*tensors)
+        tabs = device_tables(plan.cbase, plan.counts, plan.symbols, device, scan=False)
+        tensors = plan_tensors((plan.streams,) + plan.kernel_tables[:4], device)
+        kernel_out, err = entropy_device.decode_segments_device(
+            *tensors, tabs.cbase, tabs.counts, tabs.symbols, lut=tabs.k2_lut)
         if plan.dc_base is not None:
             # Pseudo segments of a stream without restart markers: restore
             # the DC predictor continuation the index scan recorded (before

@@ -2,9 +2,10 @@
 kernels (K5 ``idct_islow_plane``, K6 ``idct_float``) share on the Python side.
 
 Both take int16 SoA coefficient planes ``(..., 64, vb, hb)`` -- plane j holds
-natural-order coefficient j of every block -- and one quant table (the
-engine calls once per component), and write
-the ``(..., vb*8, hb*8)`` uint8 raster plane.  The kernels address their
+natural-order coefficient j of every block -- and one quant table per plane,
+and write the ``(..., vb*8, hb*8)`` uint8 raster plane.  K6 is launched once
+per plane (:func:`launch_plane_kernel`); K5 once for all planes of a frame
+(:func:`launch_planes_kernel`, up to MAX_PLANES descriptors in one call).  The kernels address their
 input through element strides (``csrc/block_plane.cuh``), so the block
 layout ``(..., vb, hb, 8, 8)`` that host entropy and the assembly pass
 produce goes in as a view (:func:`blocks_as_soa`), without a transposing
@@ -16,6 +17,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+MAX_PLANES = 4   # csrc/block_plane.cuh:kMaxPlanes
 
 
 def blocks_as_soa(coefs: torch.Tensor) -> torch.Tensor:
@@ -80,3 +83,30 @@ def launch_plane_kernel(fn, name: str, coefs_soa: torch.Tensor, qtable: torch.Te
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     return out
+
+
+def launch_planes_kernel(fn, name: str, coefs_list, qtables):
+    """Launch ``fn`` (jgt_idct_islow_planes) once on up to MAX_PLANES CUDA
+    coefficient planes, each (..., 64, vb, hb) with its own quant table;
+    returns the list of (..., vb*8, hb*8) uint8 planes."""
+    dev = coefs_list[0].device
+    desc, outs, keep = [], [], []   # keep: alive until the launch is enqueued
+    for coefs_soa, qtable in zip(coefs_list, qtables):
+        lead, n, vb, hb, q = check_plane_args(coefs_soa, qtable)
+        if q.device != dev or coefs_soa.device != dev:
+            raise ValueError(f"{name}: all planes and quant tables must be on {dev}")
+        # A view whenever the leading axes can be merged (always for a
+        # contiguous tensor and for a blocks_as_soa view of one).
+        x = coefs_soa.reshape(n, 64, vb, hb)
+        q = q.contiguous()
+        out = torch.empty((*lead, vb * 8, hb * 8), dtype=torch.uint8, device=dev)
+        desc += [x.data_ptr(), q.data_ptr(), out.data_ptr(), *x.stride(), n, vb, hb]
+        outs.append(out)
+        keep += [x, q]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn((ctypes.c_longlong * len(desc))(*desc), len(outs), stream)
+    del keep
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return outs

@@ -25,9 +25,12 @@ the final entries, and the stitch as a cumsum and a scatter.
 PyTorch, and :func:`scan_lut_reference` with :func:`lut_lookup` its symbol
 tables; the tests hold them to the plain version.  :func:`scan_round` runs
 one round (the same kernel, stopped after its first pass, on a CUDA tensor).
-:func:`gather_entropy_streams` (bit-aligned per-MCU streams for K2) and
-:func:`dc_base_from_coefs` are plain torch ops, as the JAX package leaves
-them to XLA.
+:func:`gather_entropy_streams` (bit-aligned per-MCU streams) and
+:func:`dc_base_from_coefs`, the plain torch ops the JAX package leaves to
+XLA, live in ``ops/entropy_device.py`` beside K2's fused form, which does
+their work on the card; the names stay importable from here.  The symbol
+tables can be built once per table set (:func:`build_scan_lut`) and handed to
+every scan with those tables.
 """
 
 from __future__ import annotations
@@ -37,34 +40,37 @@ from typing import Tuple
 
 import torch
 
-from jpeg_gpu_tpu_torch.ops.entropy_device import (
+from jpeg_gpu_tpu_torch.ops.entropy_device import (  # noqa: F401  (names kept for callers)
     LANES,
+    LUT_BITS,
+    LUT_IMAGE,
+    LUT_MISS,
+    LUT_SUB,
+    LUT_WORDS,
     SLOTS,
+    SUB_BITS,
+    SUB_TABLES,
     SUBLANES,
     BitWindow,
     _Tables,
+    _rank,
     _shl,
+    dc_base_from_coefs,
     decode_symbol,
+    gather_entropy_streams,
+    lut_complete,
+    lut_lookup,
+    lut_reference,
+    lut_views,
     to_i32,
     u32,
 )
 
-# Kernel launches since the last reset (set to 0 to start counting): two per
-# call that reaches the card, whole scan or single round -- the kernel that
-# builds the symbol tables and the cooperative kernel that scans.
+# Kernel launches since the last reset (set to 0 to start counting): one per
+# call that reaches the card, whole scan or single round (the cooperative
+# kernel that scans), and one per build of the symbol tables -- inside a call
+# that was not given them, or by :func:`build_scan_lut`.
 launches = 0
-
-# K3's symbol tables, per (sublane, slot): a first level indexed by the
-# window's top LUT_BITS bits, then SUB_TABLES second-level tables indexed by
-# the SUB_BITS bits after them.  An entry is a chain entry, LUT_SUB | the
-# byte offset of a second-level table among the slot's 16-bit entries (in the
-# first level: look there) or LUT_MISS (use decode_symbol).
-LUT_BITS = 10
-SUB_BITS = 6
-SUB_TABLES = 16
-LUT_WORDS = (1 << LUT_BITS) + SUB_TABLES * (1 << SUB_BITS)
-LUT_MISS = 0
-LUT_SUB = 0x8000
 
 
 def scan_round_reference(
@@ -150,12 +156,6 @@ def scan_round_reference(
     return exit_state, lanes_to_grid(rec, maxrec), lanes_to_grid(recn[None], 1)
 
 
-def _rank(hi, cbase, counts):
-    """The canonical rank decode_symbol looks its entry up with."""
-    top = hi.unsqueeze(-1) >> (32 - torch.arange(1, 17, device=hi.device))
-    return torch.minimum(torch.clamp(top - cbase, min=0), counts[..., :16]).sum(-1)
-
-
 def chain_entry(sym, ln):
     """What K3's step needs of a decoded symbol, in 15 bits: an invalid code
     (length above 16) counts as EOB with 17 bits; then bits 0-4 = the bits
@@ -171,57 +171,10 @@ def chain_entry(sym, ln):
 
 
 def scan_lut_reference(cbase, counts, symbols) -> torch.Tensor:
-    """Plain PyTorch version of K3's symbol tables.
-
-    Returns (8, 8, LUT_WORDS) int32 holding 16-bit entries, ``[sublane,
-    slot, entry]``.  The first 2**LUT_BITS entries, one per prefix of
-    LUT_BITS bits: the :func:`chain_entry` of what :func:`decode_symbol`
-    gives where every window with that prefix decodes alike; else ``LUT_SUB
-    |`` the byte offset of the j-th second-level table, where this is the
-    j-th such prefix in rising order; else (more than SUB_TABLES of them)
-    ``LUT_MISS``.  Then the second-level tables, one entry per prefix of
-    LUT_BITS + SUB_BITS bits under the table's own prefix: the chain entry,
-    or ``LUT_MISS``.  The rank and the invalid test are both monotone in the
-    window, so "alike" is decided at the two ends of a prefix's range,
-    whatever the tables hold.
-    """
-    tab = _Tables(cbase, counts, symbols)
-    dev = cbase.device
-    n, nsub = 1 << LUT_BITS, 1 << SUB_BITS
-    cb, cn = tab.cbase[None, :, None], tab.counts[None, :, None]
-    limit = tab.limit[None, :, None]
-    entries = tab.symbols.permute(1, 0, 2)[:, :, None].expand(SUBLANES, 8, n, LANES)
-
-    def range_entry(lo, bits):
-        hi = lo | ((1 << (32 - bits)) - 1)
-        alike = (_rank(lo, cb, cn) == _rank(hi, cb, cn)) & ((lo >= limit) == (hi >= limit))
-        return torch.where(
-            alike, chain_entry(*decode_symbol(lo, cb, cn, entries, limit)), LUT_MISS)
-
-    prefix = torch.arange(n, dtype=torch.int64, device=dev)
-    first = range_entry((prefix << (32 - LUT_BITS)).expand(SUBLANES, 8, n), LUT_BITS)
-    deep = first == LUT_MISS
-    j = torch.cumsum(deep, -1) - 1
-    sub = deep & (j < SUB_TABLES)
-    first = torch.where(sub, LUT_SUB | ((n + j * nsub) * 2), first)
-    # The prefix of each second-level table; n marks a table that is not used.
-    own = torch.where(sub, prefix, n).sort(-1).values[..., :SUB_TABLES]
-    assert SUB_TABLES * nsub == n   # entries and the rest broadcast as above
-    lo = ((own[..., None] << SUB_BITS) | torch.arange(nsub, device=dev)) << 16
-    second = range_entry(lo.reshape(SUBLANES, 8, n) & 0xFFFFFFFF, LUT_BITS + SUB_BITS)
-    second = torch.where((own == n).repeat_interleave(nsub, -1), LUT_MISS, second)
-    return torch.cat([first, second], -1).to(torch.int32)
-
-
-def lut_lookup(lut, hi):
-    """K3's lookup in plain PyTorch: the chain entries of the windows ``hi``
-    (..., N) in their tables ``lut`` (..., LUT_WORDS), or LUT_MISS where K3
-    calls decode_symbol."""
-    lut = lut.to(torch.int64)
-    e = torch.gather(lut, -1, hi >> (32 - LUT_BITS))
-    deep = (e & LUT_SUB) != 0
-    at = ((e & (LUT_SUB - 1)) >> 1) + ((hi >> 16) & ((1 << SUB_BITS) - 1))
-    return torch.where(deep, torch.gather(lut, -1, torch.where(deep, at, 0)), e)
+    """Plain PyTorch version of K3's symbol tables: the two-level tables of
+    :func:`entropy_device.lut_reference` with :func:`chain_entry` entries,
+    (8, 8, LUT_WORDS) int32."""
+    return lut_reference(cbase, counts, symbols, chain_entry)
 
 
 _lib = None
@@ -239,7 +192,7 @@ def _kernel():
         lib.jgt_specsync_work_words.restype = ctypes.c_longlong
         lib.jgt_specsync_work_words.argtypes = [i32]
         lib.jgt_specsync_index_scan.restype = ctypes.c_int
-        lib.jgt_specsync_index_scan.argtypes = [ptr] * 13 + [i32] * 9 + [ptr]
+        lib.jgt_specsync_index_scan.argtypes = [ptr] * 13 + [i32] * 10 + [ptr]
         _lib = lib
     return _lib
 
@@ -274,43 +227,33 @@ def _check_scan_args(windows, nbits, dcslot, acslot, cbase, counts, symbols, sb,
     return [t.contiguous() for t in args]
 
 
-def lut_complete(lut) -> torch.Tensor:
-    """(8, 8) bool: the tables of that (sublane, slot) answer every window,
-    so K3 runs its step without the call of decode_symbol: no LUT_MISS in
-    the first level nor in a second-level table the first level points to."""
-    lut = lut.to(torch.int64)
-    n, nsub = 1 << LUT_BITS, 1 << SUB_BITS
-    first, second = lut[..., :n], lut[..., n:].reshape(*lut.shape[:-1], SUB_TABLES, nsub)
-    used = ((first & LUT_SUB) != 0).sum(-1)                   # tables 0..used-1
-    holes = (second == LUT_MISS) & (torch.arange(SUB_TABLES, device=lut.device)[:, None]
-                                    < used[..., None, None])
-    return ~((first == LUT_MISS).any(-1) | holes.any(-1).any(-1))
-
-
-def _lut_scratch(dev) -> torch.Tensor:
-    """Room for the kernel's tables: (8, 8, LUT_WORDS) 16-bit entries, then
-    one flag per (sublane, slot)."""
-    return torch.empty(SUBLANES * 8 * (LUT_WORDS + 1), dtype=torch.int16, device=dev)
-
-
-def scan_lut(cbase, counts, symbols):
-    """K3's symbol tables as the kernel builds them on the card: (tables,
-    complete), the tables widened to (8, 8, LUT_WORDS) int32 as
-    :func:`scan_lut_reference` gives them, and the kernel's flags as
-    :func:`lut_complete` gives them.  CUDA tensors only."""
-    if cbase.device.type != "cuda":
-        raise RuntimeError(f"scan_lut: no kernel for device {cbase.device}")
-    lut = _lut_scratch(cbase.device)
+def build_scan_lut(cbase, counts, symbols) -> torch.Tensor:
+    """K3's symbol tables as the kernel builds them on the card: (LUT_IMAGE,)
+    int16, what :func:`device_index_scan` takes as ``lut`` (:func:`scan_lut`
+    unpacks it).  Build once per table set.  CUDA tensors only."""
+    dev = cbase.device
+    if dev.type != "cuda":
+        raise RuntimeError(f"build_scan_lut: no kernel for device {dev}")
+    lut = torch.empty(LUT_IMAGE, dtype=torch.int16, device=dev)
     lib = _kernel()
-    with torch.cuda.device(cbase.device):
+    with torch.cuda.device(dev):
         rc = lib.jgt_specsync_lut(
             cbase.contiguous().data_ptr(), counts.contiguous().data_ptr(),
             symbols.contiguous().data_ptr(), lut.data_ptr(),
-            torch.cuda.current_stream(cbase.device).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"specsync_scan table kernel launch failed: CUDA error {rc}")
-    tables = lut[: SUBLANES * 8 * LUT_WORDS].reshape(SUBLANES, 8, LUT_WORDS)
-    return tables.to(torch.int32) & 0xFFFF, lut[SUBLANES * 8 * LUT_WORDS:].reshape(SUBLANES, 8) != 0
+    global launches
+    launches += 1
+    return lut
+
+
+def scan_lut(cbase, counts, symbols):
+    """:func:`build_scan_lut`, unpacked: (tables, complete), the tables
+    widened to (8, 8, LUT_WORDS) int32 as :func:`scan_lut_reference` gives
+    them, and the kernel's flags as :func:`lut_complete` gives them."""
+    tables, complete = lut_views(build_scan_lut(cbase, counts, symbols))
+    return tables[0], complete[0]
 
 
 def scan_round(
@@ -326,9 +269,11 @@ def scan_round(
     sb: int,
     maxrec: int,
     record: bool,
+    lut=None,
 ):
     """One scan round: the exit state, plus records and their counts when
-    ``record``.  CPU tensors run the plain version; CUDA tensors launch K3."""
+    ``record``.  CPU tensors run the plain version; CUDA tensors launch K3
+    (``lut``: :func:`build_scan_lut` of the tables, None builds them here)."""
     bs = windows.shape[0]
     if record and maxrec < 1:
         raise ValueError(f"bad scan geometry: maxrec {maxrec} with record")
@@ -348,7 +293,7 @@ def scan_round(
     if entry.device != dev:
         raise ValueError(f"scan_round: all inputs must be on {dev}")
     n = bs * SLOTS
-    work, rec, _ = _launch_scan(args, nbits, sb=sb, maxrec=maxrec, entry=entry)
+    work, rec, _ = _launch_scan(args, nbits, sb=sb, maxrec=maxrec, entry=entry, lut=lut)
     exit_state = work[4 * n: 8 * n].reshape(bs, 4, SUBLANES, LANES)
     if not record:
         return (exit_state,)
@@ -356,10 +301,12 @@ def scan_round(
 
 
 def _launch_scan(args, nbits, *, sb, maxrec, n_mcus=0, max_rounds=0, entry=None,
-                 outputs=(None, None, None)):
+                 outputs=(None, None, None), lut=None):
     """Enqueue K3 on the checked CUDA inputs ``args``: the whole scan into
     ``outputs`` (bitpos, ok, stats), or with ``entry`` one round from those
-    entry states.  Never waits for the card.  Returns the kernel's scratch:
+    entry states.  ``lut`` is :func:`build_scan_lut` of the same tables;
+    None builds them in this call.  Never waits for the card.  Returns the
+    kernel's scratch:
     ``work`` (int32: entries, then two exit buffers of (BS, 4, 8, 128) each,
     then the record counts (BS, 8, 128)), the records (BS, maxrec, 8, 128)
     and the lanes that decoded in each pass (max_rounds + 1,)."""
@@ -368,7 +315,10 @@ def _launch_scan(args, nbits, *, sb, maxrec, n_mcus=0, max_rounds=0, entry=None,
     bs, nws = windows.shape[0], windows.shape[1]
     lib = _kernel()
     i32 = dict(dtype=torch.int32, device=dev)
-    lut = _lut_scratch(dev)
+    given = lut is not None
+    if given and (lut.dtype != torch.int16 or lut.numel() != LUT_IMAGE or lut.device != dev):
+        raise ValueError(f"lut must be build_scan_lut's ({LUT_IMAGE},) int16 on {dev}")
+    lut = lut.contiguous() if given else torch.empty(LUT_IMAGE, dtype=torch.int16, device=dev)
     work = torch.empty(lib.jgt_specsync_work_words(bs), **i32)
     round_lanes = torch.zeros(max_rounds + 1, **i32)   # the kernel counts from 0
     if entry is None:
@@ -383,12 +333,12 @@ def _launch_scan(args, nbits, *, sb, maxrec, n_mcus=0, max_rounds=0, entry=None,
             *(t.data_ptr() for t in args), lut.data_ptr(), work.data_ptr(), rec.data_ptr(),
             round_lanes.data_ptr(), *(None if t is None else t.data_ptr() for t in outputs),
             bs, nws, int(nbits), sb, args[1].shape[0], maxrec, n_mcus, max_rounds,
-            int(entry is not None), stream,
+            int(entry is not None), int(given), stream,
         )
     if rc != 0:
         raise RuntimeError(f"specsync_scan kernel launch failed: CUDA error {rc}")
     global launches
-    launches += 2
+    launches += 1 if given else 2
     return work, rec, round_lanes
 
 
@@ -463,12 +413,15 @@ def device_index_scan(
     n_mcus: int,
     max_rounds: int = 16,
     plain: bool = False,
+    lut=None,
 ):
     """Parallel index scan: converged per-MCU bit offsets, on the device.
 
     CUDA tensors go through K3 in one call that never waits for the card;
     CPU tensors, and any tensors with ``plain=True`` (to hold K3 against it
-    on the card), run the plain version round by round.
+    on the card), run the plain version round by round.  ``lut`` is
+    :func:`build_scan_lut` of the same tables, kept by a caller that scans
+    with them again; None builds the symbol tables in this call.
 
     Returns (bitpos, ok, stats) as tensors on the windows' device:
       bitpos (n_mcus,) int32 -- destuffed-stream bit offset of each MCU
@@ -480,7 +433,8 @@ def device_index_scan(
     dev = windows.device
     if not plain and dev.type != "cpu":
         return index_scan_kernel(windows, nbits, dcslot, acslot, cbase, counts, symbols, sb=sb,
-                                 maxrec=maxrec, n_mcus=n_mcus, max_rounds=max_rounds)[:3]
+                                 maxrec=maxrec, n_mcus=n_mcus, max_rounds=max_rounds,
+                                 lut=lut)[:3]
     if maxrec < 1 or n_mcus < 1 or max_rounds < 0:
         raise ValueError(
             f"bad scan geometry: maxrec {maxrec}, n_mcus {n_mcus}, max_rounds {max_rounds}")
@@ -504,7 +458,7 @@ def device_index_scan(
 
 def index_scan_kernel(
     windows, nbits: int, dcslot, acslot, cbase, counts, symbols,
-    *, sb: int, maxrec: int, n_mcus: int, max_rounds: int = 16,
+    *, sb: int, maxrec: int, n_mcus: int, max_rounds: int = 16, lut=None,
 ):
     """K3's whole scan on CUDA tensors: (bitpos, ok, stats, round_lanes), the
     first three as :func:`device_index_scan` gives them and ``round_lanes``
@@ -521,7 +475,7 @@ def index_scan_kernel(
     ok = torch.empty((), dtype=torch.bool, device=dev)
     stats = torch.empty(3, dtype=torch.int32, device=dev)
     round_lanes = _launch_scan(args, nbits, sb=sb, maxrec=maxrec, n_mcus=n_mcus,
-                               max_rounds=max_rounds, outputs=(bitpos, ok, stats))[2]
+                               max_rounds=max_rounds, outputs=(bitpos, ok, stats), lut=lut)[2]
     return bitpos, ok, stats, round_lanes
 
 
@@ -561,65 +515,3 @@ def device_index_scan_lazy_reference(
             torch.where(changed, new, old) for new, old in zip(decoded, (exit_state, rec, recn)))
     out = _stitch(rec, recn, rounds, converged, sb=sb, maxrec=maxrec, n_mcus=n_mcus)
     return (*out, round_lanes, rec, recn)
-
-
-def gather_entropy_streams(
-    windows: torch.Tensor,   # (BS, NWS, 8, 128) int32
-    bitpos: torch.Tensor,    # (n_mcus,) int32
-    *,
-    nw: int,
-    spw: int,                # non-overlapping words per window row (SB // 4)
-    nws: int,                # words per window row (spw + overlap)
-) -> torch.Tensor:
-    """Bit-aligned per-MCU streams for K2, built on the device.
-
-    One gather pulls each pseudo segment's ``nw + 1`` words out of the
-    window tensor from word ``bitpos >> 5`` (the first ``spw`` words of the
-    window rows tile the destuffed stream, so flat word W lives at
-    [W // spw, W % spw] in lane layout), then a per-lane shift aligns bit
-    ``bitpos & 31`` to bit 0.  Returns (B2, nw, 8, 128) int32,
-    B2 = ceil(n_mcus / 1024); padding lanes replay segment 0.
-
-    Words past the window grid read 0xFFFFFFFF, the bit reader's padding.
-    The reference clamps them to the last word instead, which repeats real
-    data when the stream exactly fills the grid.
-    """
-    bs = windows.shape[0]
-    n_mcus = bitpos.shape[0]
-    b2 = -(-n_mcus // SLOTS)
-    seg = torch.zeros(b2 * SLOTS, dtype=torch.int64, device=windows.device)
-    seg[:n_mcus] = u32(bitpos)
-    sh = (seg & 31).reshape(b2, 1, SUBLANES, LANES)
-    w0 = seg >> 5
-    last = bs * SLOTS * spw - 1
-    word = w0[:, None] + torch.arange(nw + 1, device=windows.device)[None, :]
-    past = word > last
-    word = torch.clamp(word, max=last)       # (S2, nw+1) flat stream word
-    g = word // spw
-    w_in = word - g * spw
-    flat_idx = ((g // SLOTS) * nws + w_in) * SLOTS + g % SLOTS
-    rows = u32(windows.reshape(-1)[flat_idx])
-    rows = torch.where(past, 0xFFFFFFFF, rows)
-    rows = rows.reshape(b2, SUBLANES, LANES, nw + 1).movedim(-1, 1)  # (b2, nw+1, 8, 128)
-    aligned = _shl(rows[:, :nw], sh) | (rows[:, 1:] >> (32 - sh))
-    return to_i32(aligned)
-
-
-def dc_base_from_coefs(
-    kernel_out: torch.Tensor,     # (B2, T, 64, 8, 128) int16 K2 output
-    t_last: Tuple[int, ...],      # last block step of each scan component
-) -> torch.Tensor:
-    """Per-pseudo-segment DC predictor bases from the decode itself.
-
-    With one MCU per pseudo segment K2 accumulates DC diffs from 0 inside
-    each segment, so component c's last block step holds the segment's
-    total DC diff; the predictor entering segment m is the exclusive prefix
-    sum in segment order.  Returns (B2, 8, 128, C) int32 for apply_dc_base.
-    """
-    b2 = kernel_out.shape[0]
-    cols = []
-    for t in t_last:
-        tot = kernel_out[:, t, 0].to(torch.int32).reshape(b2 * SLOTS)
-        base = torch.cumsum(tot, 0, dtype=torch.int32) - tot     # exclusive
-        cols.append(base.reshape(b2, SUBLANES, LANES))
-    return torch.stack(cols, dim=-1)

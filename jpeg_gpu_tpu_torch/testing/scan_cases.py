@@ -32,3 +32,44 @@ def random_tables(seed):
     return (rng.integers(-40, 70000, size=(8, 16)).astype(np.int32),
             rng.integers(-3, 40, size=(8, 17)).astype(np.int32),
             rng.integers(-2**31, 2**31, size=(8, 8, 128), dtype=np.int64).astype(np.int32))
+
+
+def stream_windows(data: bytes, sb: int):
+    """The window rows build_spec_scan_input cuts a destuffed stream into,
+    for ``sb``-byte subsequences: (windows (BS, NWS, 8, 128) int32, spw)."""
+    spw, nws = sb // 4, sb // 4 + 3
+    bs = max(1, -(-len(data) // (sb * 1024)))
+    flat = np.full((bs * 1024 * spw + nws) * 4, 0xFF, dtype=np.uint8)
+    flat[: len(data)] = np.frombuffer(data, dtype=np.uint8)
+    win = np.lib.stride_tricks.sliding_window_view(flat.view(">u4"), nws)[::spw][: bs * 1024]
+    windows = win.reshape(bs, 1024, nws).transpose(0, 2, 1).astype(np.uint32).view(np.int32)
+    return np.ascontiguousarray(windows.reshape(bs, nws, 8, 128)), spw
+
+
+def dc_ramp_case(n_mcus: int = 1100, sb: int = 64):
+    """A hand-made one-component stream without restart markers whose DC
+    runs out of int16: every MCU is one block with DC difference +2047 and
+    no AC coefficient.  DC table (slot 0): symbols 0 and 11, codes 00 and 01;
+    AC table (slot 4): EOB, code 00.  An MCU is 01, eleven ones, 00: 15 bits.
+
+    Returns (args, kwargs, dc): the positional arguments of
+    ``decode_mcus_at_bitpos`` as numpy arrays (``n_bits`` an int), its
+    ``spw`` keyword, and the DC values (n_mcus,) int16 it must give,
+    2047 * (m + 1) wrapped as an int16 add wraps."""
+    cbase = np.zeros((8, 16), np.int32)
+    counts = np.zeros((8, 17), np.int32)
+    counts[:, 16] = np.iinfo(np.int32).min
+    symbols = np.full((8, 8, 128), (31 << 8) | (31 << 24), np.int32)
+    two, one = np.zeros(16, np.uint8), np.zeros(16, np.uint8)
+    two[1], one[1] = 2, 1
+    cbase[0], counts[0], symbols[0] = _decode_tables(
+        HuffmanSpec(0, two, np.array([0, 11], np.uint8)))
+    cbase[4], counts[4], symbols[4] = _decode_tables(HuffmanSpec(1, one, np.array([0], np.uint8)))
+    bits = ("01" + "1" * 11 + "00") * n_mcus
+    bits += "1" * (-len(bits) % 8)
+    data = int(bits, 2).to_bytes(len(bits) // 8, "big")
+    windows, spw = stream_windows(data, sb)
+    bitpos = (15 * np.arange(n_mcus)).astype(np.int32)
+    maps = (np.zeros(1, np.int32), np.zeros(1, np.int32), np.full(1, 4, np.int32))
+    dc = (2047 * (np.arange(n_mcus, dtype=np.int64) + 1)).astype(np.int16)
+    return (windows, bitpos, len(data) * 8, *maps, cbase, counts, symbols), {"spw": spw}, dc

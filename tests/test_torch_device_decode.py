@@ -128,3 +128,79 @@ def test_planner_rejection_falls_back_to_host_entropy(monkeypatch):
 def test_bad_on_error_rejected():
     with pytest.raises(ValueError):
         jt.TorchDecoder(_enc(16, 16, seed=1), device="cpu", on_error="ignore")
+
+
+def _spy(monkeypatch, name):
+    """Count the calls of ``ops.entropy_device.<name>`` that the engine makes."""
+    from jpeg_gpu_tpu_torch.ops import entropy_device
+
+    calls = []
+    real = getattr(entropy_device, name)
+
+    def counted(*a, **kw):
+        calls.append(name)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(entropy_device, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("mode", ["4:2:0", "4:4:4"])
+@pytest.mark.parametrize("stage", ["rgb", "yuv"])
+def test_streams_without_restart_markers_take_the_fused_entry(monkeypatch, stage, mode):
+    """The engine decodes a stream without restart markers through K2's fused
+    form (no gather, no row form, no DC pass in torch) and still gives the
+    JAX package's bytes, for the fused RGB kernel and for out="yuv"."""
+    fused = _spy(monkeypatch, "decode_mcus_at_bitpos")
+    rows = _spy(monkeypatch, "decode_segments_device")
+    gathers = _spy(monkeypatch, "gather_entropy_streams")
+    data = _enc(43, 61, seed=18, mode=mode)
+    dec = jt.get_decoder(data, device="cpu", entropy="device")
+    got = dec.decode(stage)
+    assert dec.specsync_stats is not None
+    assert fused == ["decode_mcus_at_bitpos"] and not rows
+    # On the CPU the fused form's plain version is the chain, gather included.
+    assert len(gathers) == 1
+    ref = jr.decode(data, out=stage, impl="tpu", entropy="device")
+    host = jr.decode(data, out=stage, impl="host")
+    parts = lambda r: [r] if isinstance(r, np.ndarray) else r.planes  # noqa: E731
+    for a, b, c in zip(parts(got), parts(ref), parts(host)):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_a_scan_that_falls_back_takes_the_row_form(monkeypatch):
+    """A scan that overflows its records: the serial host scan takes over and
+    its pseudo segments decode through the row form, with the same bytes."""
+    from jpeg_gpu_tpu_torch.engine import device_entropy
+
+    real_build = device_entropy.build_spec_scan_input
+
+    def tiny_maxrec(parsed, **kw):
+        inp = real_build(parsed, **kw)
+        inp.maxrec = 1
+        return inp
+
+    monkeypatch.setattr(device_entropy, "build_spec_scan_input", tiny_maxrec)
+    rows = _spy(monkeypatch, "decode_segments_device")
+    data = _enc(48, 64, seed=19)
+    dec = jt.get_decoder(data, device="cpu", entropy="device")
+    got = dec.decode()
+    assert dec.specsync_stats is None and rows == ["decode_segments_device"]
+    np.testing.assert_array_equal(got, jr.decode(data, impl="host"))
+
+
+def test_table_sets_stay_on_the_device_between_decodes():
+    """The engine uploads a table set once per device: a second decode of the
+    same stream finds the same tensors."""
+    from jpeg_gpu_tpu_torch.engine import device_entropy
+    from jpeg_gpu_tpu_torch.host import segments
+
+    data = _enc(24, 40, seed=20)
+    arrays = segments._table_tensors(parse(data).header)
+    jt.decode(data, device="cpu", entropy="device")
+    first = device_entropy.device_tables(*arrays, "cpu", scan=True)
+    jt.decode(data, device="cpu", entropy="device")
+    again = device_entropy.device_tables(*arrays, "cpu", scan=True)
+    assert again is first and first.k2_lut is None and first.k3_lut is None
+    np.testing.assert_array_equal(first.counts.numpy(), arrays[1])

@@ -5,7 +5,10 @@ kernel ``idct_islow_pallas.dequant_idct_islow_plane_soa`` (interpret mode on
 the CPU), the JAX unfused ``dequant_idct_islow_plane`` and the port's plain
 version of K5; tolerance 0 (integer arithmetic).  On the CPU the port's
 wrapper runs the plain version; the CUDA kernel itself is held to the plain
-version by the ``gpu``-marked tests and by ``chip_smoke.py``.
+version by the ``gpu``-marked tests and by ``chip_smoke.py``.  The
+multi-plane entry (all components of a frame in one call) is held to one
+call per plane, to the unfused port and to the JAX kernel on mixed grids and
+layouts.
 """
 
 import numpy as np
@@ -103,6 +106,87 @@ def test_wrapper_has_no_fallback_for_other_devices():
     soa = torch.zeros((64, 2, 2), dtype=torch.int16, device="meta")
     with pytest.raises(RuntimeError):
         tplane.dequant_idct_islow_plane_soa(soa, torch.ones(64, dtype=torch.int32, device="meta"))
+
+
+GRIDS = [(1, 1), (3, 5), (17, 33), (2, 4, 4)]
+
+
+def _planes(nplanes, layout, seed=7):
+    """``nplanes`` block tensors on mixed grids, their SoA planes in
+    ``layout`` ("soa", "view", or "mixed": views and contiguous planes in
+    turn) and a quant table each."""
+    blocks, planes, tables = [], [], []
+    for i in range(nplanes):
+        coefs, q = _case(seed + i, GRIDS[i], lim=1500)
+        c = torch.from_numpy(coefs)
+        view = layout == "view" or (layout == "mixed" and i % 2 == 0)
+        blocks.append(c)
+        planes.append(block_plane.blocks_as_soa(c) if view else blocks_to_soa(c))
+        tables.append(torch.from_numpy(q))
+    return blocks, planes, tables
+
+
+@pytest.mark.parametrize("layout", ["soa", "view", "mixed"])
+@pytest.mark.parametrize("nplanes", [1, 3, 4])
+def test_all_planes_in_one_call(nplanes, layout):
+    """Mixed grids, mixed layouts, a table per plane: the multi-plane entry
+    equals one call per plane, the unfused port and the JAX Pallas kernel."""
+    blocks, planes, tables = _planes(nplanes, layout)
+    got = tplane.dequant_idct_islow_planes_soa(planes, tables)
+    assert isinstance(got, list) and len(got) == nplanes
+    for c, p, q, g in zip(blocks, planes, tables, got):
+        assert g.dtype == torch.uint8
+        assert g.shape == c.shape[:-4] + (c.shape[-4] * 8, c.shape[-3] * 8)
+        assert torch.equal(g, tplane.dequant_idct_islow_plane_soa(p, q))
+        assert torch.equal(g, tislow.dequant_idct_islow_plane(c, q))
+        kernel = np.asarray(jplane.dequant_idct_islow_plane_soa(
+            jplane.blocks_to_soa(jnp.asarray(c.numpy())), jnp.asarray(q.numpy()), band=1))
+        np.testing.assert_array_equal(g.numpy(), kernel)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "five planes", "no planes", "tables", "devices", "shape"])
+def test_multi_plane_entry_rejects_bad_descriptors(bad):
+    _, planes, tables = _planes(3, "soa")
+    want = ValueError
+    if bad == "dtype":
+        planes[1], want = planes[1].to(torch.int32), TypeError
+    elif bad == "five planes":
+        planes, tables = planes + planes[:2], tables + tables[:2]
+    elif bad == "no planes":
+        planes, tables = [], []
+    elif bad == "tables":
+        tables = tables[:2]
+    elif bad == "devices":
+        planes[2] = planes[2].to("meta")
+    else:
+        planes[0] = planes[0][:63]
+    with pytest.raises(want):
+        tplane.dequant_idct_islow_planes_soa(planes, tables)
+
+
+def test_multi_plane_entry_has_no_fallback_for_other_devices():
+    soa = torch.zeros((64, 2, 2), dtype=torch.int16, device="meta")
+    q = torch.ones(64, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tplane.dequant_idct_islow_planes_soa([soa, soa], [q, q])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["soa", "view", "mixed"])
+@pytest.mark.parametrize("nplanes", [1, 3, 4])
+def test_multi_plane_kernel_vs_plain_on_gpu(nplanes, layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K5 kernel has no CPU mode")
+    _, planes, tables = _planes(nplanes, layout)
+    planes = [p.cuda() if p.is_contiguous() else block_plane.blocks_as_soa(
+        block_plane.soa_as_blocks(p).cuda()) for p in planes]
+    tables = [q.cuda() for q in tables]
+    before = tplane.launches
+    got = tplane.dequant_idct_islow_planes_soa(planes, tables)
+    assert tplane.launches == before + 1
+    ref = [tplane.dequant_idct_islow_plane_soa_reference(p, q) for p, q in zip(planes, tables)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 @pytest.mark.gpu
