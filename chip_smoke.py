@@ -10,7 +10,9 @@
    (csrc/idct_float.cu), one nvcc each, all started together -- and of the
    native host entropy decoder (g++).
 2. K1 against its plain PyTorch version on the same CUDA tensors, for the
-   five fused geometries x {nearest, fancy} at 17x31, 130x250 and 10x4200.
+   five fused geometries x {nearest, fancy} at 17x31, 130x250 and 10x4200
+   (rows that start at offsets that are not multiples of 16 bytes), and on
+   a batch of three 37x53 frames with a table set per image.
 3. K2's row form against its plain version: coefficients and the full flag
    tensor, for the six modes x restart intervals {1, 3} at 130x250, a plan
    without restart markers with its DC bases applied, a corrupted stream,
@@ -45,10 +47,14 @@
    table, contiguous, as views and mixed, equal to one call per plane.  K6
    against its plain version (max abs err <= 1, the
    count of differing samples printed): random blocks in [-300, 300) with
-   tables in [1, 50), and IEEE 1180-style statistics of the card's output
-   against a float64 numpy IDCT.  Then K5 and K6 on the decoded coefficients
-   of the frames the main paths decode, every component's grid with its own
-   table, for K5 also all components in one launch: 1080p 4:2:0, 4K 4:2:2, 512x512 grayscale and the h2v4 frame.
+   tables in [1, 50), all four grids in one launch (equal to one call per
+   plane), and IEEE 1180-style statistics of the card's output against a
+   float64 numpy IDCT.  K5 and K6 each with a table per leading index
+   ((3, 1, 1, 8, 8), as the batch code passes them) beside a plane with one
+   table, in one launch.  Then K5 and K6 on the decoded coefficients of the
+   frames the main paths decode, every component's grid with its own table,
+   and all components in one launch: 1080p 4:2:0, 4K 4:2:2, 512x512
+   grayscale and the h2v4 frame.
    K4 against its plain version and against the host's dense coefficients
    (equal): the six modes at 130x250, 64x80 grayscale, 1080p 4:2:0 and
    4K 4:2:2; then the four hand-made streams, hand-made and random streams
@@ -65,9 +71,9 @@
    restart markers.  Then the paths of the standalone kernels: ``out="yuv"``
    at 1080p 4:2:0 with host entropy and with ``entropy="device"`` (K5, one
    launch each), 512x512 grayscale RGB (K5) and a 3-component geometry the
-   fused kernel does not take (K5, one launch); ``exact=False`` RGB at 1080p 4:2:0 with
-   host entropy and with ``entropy="device"`` (K6 x3 each; within 2 of the
-   CPU port and within 4 of the exact decode); ``upload="pack"`` fancy RGB
+   fused kernel does not take (K5, one launch); ``exact=False`` RGB at 1080p
+   4:2:0 with host entropy and with ``entropy="device"`` (K6, one launch
+   each; within 2 of the CPU port and within 4 of the exact decode); ``upload="pack"`` fancy RGB
    at 1080p 4:2:0 and 4K 4:2:2 (K4 -> K5, one launch) and ``upload="pack"`` with
    ``out="quant"`` equal to the host's coefficients.  The exact paths equal
    the CPU path; every kernel's launch count is the one stated; the frames
@@ -76,22 +82,27 @@
    ``on_error="zero"`` equals the CPU port's salvage.
 7. Timings with CUDA events after warm-up, each kernel and its plain
    version in turns (plain, kernel, kernel, plain): K1 for coefs->RGB of
-   1080p 4:2:0 nearest at batch 8 and of the 4K 4:2:2 fancy frame; K2's row
+   1080p 4:2:0 nearest and fancy at batch 8 and of the 4K 4:2:2 fancy
+   frame, with its device time and swept over tiles of 1, 2 and 4 MCU
+   rows; K2's row
    form on the 1080p R=1 plan, its table kernel alone, and its fused form on
    the 1080p and 4K scan inputs with the chain it replaces beside it; K3 as a whole device_index_scan at 1080p and 4K,
    its table kernel alone, the scan swept over subsequences of 128, 256 and
    512 bytes (rounds, lanes decoded per pass), and again over 1080p frames
    of quality 50, 75 and 95 in 4:4:4 and 4:2:0 (encoded by worker processes
    meanwhile) for the most rounds each target needs; K4 on the 1080p and 4K pack plans (its zero-fill
-   included, a torch.zeros of the output beside it); K5 (one launch) and K6
-   (three) on the three planes of a 1080p 4:2:0 frame, with the kernels'
-   device time from torch.profiler beside the event timing of the wrapper.  Beside each its bound: the larger of the bytes it
-   must move over the card's memory rate and its operations over the
-   card's float32 rate.  Host clock: parse + native entropy, parse +
+   included, a torch.zeros of the output beside it); K5 and K6 (one launch
+   each, and as one call per plane) on the three planes of a 1080p 4:2:0
+   frame, with the kernels' device time from torch.profiler beside the
+   event timing of the wrapper, and K6's library yardstick (one
+   conv_transpose2d per plane) by events and by device time.  Beside each
+   its bound: the larger of the bytes it must move over the card's memory
+   rate and its operations over the card's float32 rate.  Host clock: parse + native entropy, parse +
    build_spec_scan_input and parse + build_plan per 1080p frame, and the
    whole decode per 1080p frame with host entropy, ``entropy="device"``
-   (with and without restart markers), ``upload="pack"`` and
-   ``exact=False``; upload bytes of the bits cut and the pack cut against
+   (with and without restart markers), ``upload="pack"``, and
+   ``exact=False`` and ``out="yuv"`` with host entropy and with
+   ``entropy="device"``; upload bytes of the bits cut and the pack cut against
    the coefficient cut; the split of an ``entropy="device"`` decode and of
    an ``upload="pack"`` decode into their stages (host clock, a sync after
    each); the card's busy share over five decodes, from torch.profiler's
@@ -107,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import multiprocessing
 import subprocess
@@ -182,12 +194,16 @@ def device_ms(fn, iters: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:72]: e.self_device_time_total / 1e3 / iters
-            for e in prof.key_averages() if e.self_device_time_total > 0}
+    for _ in range(3):   # a window the profiler saw no device event in is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key[:72]: e.self_device_time_total / 1e3 / iters
+                 for e in prof.key_averages() if e.self_device_time_total > 0}
+        if times:
+            return times
+    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def nbytes(*tensors) -> int:
@@ -334,6 +350,26 @@ def main() -> int:
                       f"(fancy filter {'on' if kw['fancy'] else 'off'}): "
                       f"max abs err {err}")
                 assert err == 0, (mode, ups, h, w)
+    # A batch of three odd-sized frames in one launch, a table set per
+    # image: the second and third images start at offsets that are not
+    # multiples of 16 bytes.
+    trng = np.random.default_rng(args.seed + 8)
+    for mode, _, _ in GEOMETRIES:
+        imgs = [corpus.synthetic_rgb(37, 53, seed=args.seed + 40 + b) for b in range(3)]
+        for ups in ("nearest", "fancy"):
+            spec, geom, comps, _ = soa_inputs(imgs, mode, ups)
+            tables = [torch.from_numpy(trng.integers(1, 64, size=(3, 64)).astype(np.int32))
+                      .to(dev) for _ in range(3)]
+            a, kw = pipeline.fused_soa_args(spec, geom, comps, tables)
+            got = pixel_fused.decode_rgb_fused_soa(*a, **kw)
+            ref = pixel_fused.decode_rgb_fused_soa_reference(*a, **kw)
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape == (3, 37, 53, 3), (got.shape, ref.shape)
+            err = int((got.int() - ref.int()).abs().max())
+            max_err = max(max_err, err)
+            print(f"K1 vs plain {mode} {ups:7s} batch of 3 frames 37x53, a table set per "
+                  f"image: max abs err {err}")
+            assert err == 0, (mode, ups, "batch")
 
     phase_done(2)
     def encode(h, w, mode, seed, restart=0):
@@ -786,6 +822,36 @@ def main() -> int:
     k6_case("(3, 17, 33) random blocks, view of blocks",
             idct_float.dequant_idct_float_plane_soa(blocks_as_soa(c), q),
             idct_float.dequant_idct_float_plane_soa_reference(blocks_as_soa(c), q))
+    # K6 with all planes in one launch, each with its own grid and table,
+    # contiguous and as views: equal to one call per plane, within 1 of the
+    # plain version.
+    def k6_multi(name, planes, tables):
+        before = idct_float.launches
+        got = idct_float.dequant_idct_float_planes_soa(planes, tables)
+        assert idct_float.launches == before + 1, name
+        single = [idct_float.dequant_idct_float_plane_soa(c, q) for c, q in zip(planes, tables)]
+        for i, (g, c, q) in enumerate(zip(got, planes, tables)):
+            k6_case(f"one launch, {name}, plane {i} {tuple(g.shape)}", g,
+                    idct_float.dequant_idct_float_plane_soa_reference(c, q))
+        same = all(torch.equal(g, x) for g, x in zip(got, single))
+        print(f"K6 one launch {name}: equal to one call per plane: {same}")
+        assert same, name
+
+    multi6 = [random_blocks(g, 300, 50) for g in ((1, 1), (3, 5), (17, 33), (136, 240))]
+    for layout, pick in (("contiguous planes", lambda c: blocks_as_soa(c).contiguous()),
+                         ("views of blocks", blocks_as_soa)):
+        k6_multi(f"grids (1, 1), (3, 5), (17, 33), (136, 240), {layout}",
+                 [pick(c) for c, _ in multi6], [q for _, q in multi6])
+
+    # A table per leading index ((3, 1, 1, 8, 8), as the batch code passes
+    # them) beside a plane with one table, K5 and K6 in one launch each.
+    for multi_check, lim, qhi in ((k5_multi, 1500, 64), (k6_multi, 300, 50)):
+        c3, _ = random_blocks((3, 17, 33), lim, qhi)
+        q3 = torch.from_numpy(rng.integers(1, qhi, size=(3, 1, 1, 8, 8)).astype(np.int32)).to(dev)
+        c1, q1 = random_blocks((68, 120), lim, qhi)
+        multi_check("a table per leading index (3, 1, 1, 8, 8) beside one table",
+                    [blocks_as_soa(c3), blocks_as_soa(c1).contiguous()], [q3, q1])
+
     for lo, hi in ((-256, 255), (-5, 5), (-300, 300)):
         # IEEE 1180-1990 style: random pixel blocks -> float64 forward DCT ->
         # integer coefficients; the card's samples against a float64 IDCT.
@@ -894,6 +960,7 @@ def main() -> int:
                               ("contiguous planes",
                                [blocks_as_soa(c).contiguous() for c in planes])):
             k5_multi(f"{name} decoded coefficients, all components, {layout}", views, list(qts))
+            k6_multi(f"{name} decoded coefficients, all components, {layout}", views, list(qts))
         return planes, qts
 
     k6_planes, k6_qts = decoded_planes("1080p 4:2:0", parsed1080, scan1080.coefs)
@@ -979,9 +1046,9 @@ def main() -> int:
         ("512x512 gray rgb", data_gray, "rgb", {}, (0, 1, 0)),
         ("130x250 h2v4 fancy rgb (no fused geometry)", data_v4, "rgb",
          {"upsample": "fancy"}, (0, 1, 0)),
-        ("1080p 4:2:0 rgb exact=False", data1080, "rgb", {"exact": False}, (0, 0, 3)),
+        ("1080p 4:2:0 rgb exact=False", data1080, "rgb", {"exact": False}, (0, 0, 1)),
         ("1080p 4:2:0 rgb exact=False entropy=device", data1080, "rgb",
-         {"exact": False, "entropy": "device"}, (0, 0, 3)),
+         {"exact": False, "entropy": "device"}, (0, 0, 1)),
         ("1080p 4:2:0 fancy rgb upload=pack", data1080, "rgb",
          {"upload": "pack", "upsample": "fancy"}, (1, 1, 0)),
         ("4K 4:2:2 fancy rgb upload=pack", data4k, "rgb",
@@ -1126,9 +1193,10 @@ def main() -> int:
         for key, ms in rows[:10]:
             print(f"  {ms / 5} ms/frame  {key[:90]}")
 
-    def time_k1(name, images, mode, upsample):
-        """Kernel and plain version on the same batch, in turns."""
-        spec, geom, comps, qt = soa_inputs(images, mode, upsample)
+    def time_k1(name, inputs):
+        """Kernel and plain version on the same batch (soa_inputs' tuple),
+        in turns."""
+        spec, geom, comps, qt = inputs
         a, kw = pipeline.fused_soa_args(spec, geom, comps, qt)
         kernel = lambda: pixel_fused.decode_rgb_fused_soa(*a, **kw)  # noqa: E731
         plain = lambda: pixel_fused.decode_rgb_fused_soa_reference(*a, **kw)  # noqa: E731
@@ -1144,22 +1212,25 @@ def main() -> int:
         kernel_ms = [cuda_ms(kernel, 50), cuda_ms(kernel, 50)]
         plain_ms.append(cuda_ms(plain, 10))
         k_ms, p_ms = sum(kernel_ms) / 2, sum(plain_ms) / 2
-        mpix = len(images) * spec.height * spec.width / 1e6
+        mpix = got.numel() // 3 / 1e6
         tensors = [t for t in a if isinstance(t, torch.Tensor)]
         b = bound(nbytes(*tensors, got),
                   sum(t.numel() for t in a[:3]) // 64 * ISLOW_OPS_PER_BLOCK
                   + got.numel() // 3 * COLOUR_OPS_PER_PIXEL)
+        dev_ms = device_ms(kernel, 20)
         print(f"K1 coefs->RGB {name}: kernel {k_ms} ms ({mpix / k_ms * 1e3} Mpix/s) "
-              f"runs {kernel_ms}; plain torch {p_ms} ms ({mpix / p_ms * 1e3} Mpix/s) "
-              f"runs {plain_ms}; {bound_text(b)}  [{card}]")
-        return k_ms, p_ms, b
+              f"runs {kernel_ms} (device time by kernel {dev_ms}); plain torch {p_ms} ms "
+              f"({mpix / p_ms * 1e3} Mpix/s) runs {plain_ms}; {bound_text(b)}  [{card}]")
+        return k_ms, p_ms, b, sum(ms for k, ms in dev_ms.items() if "fused_rgb_kernel" in k)
 
     batch = 8
-    k_ms, p_ms, k1_bound = time_k1(
-        f"1080p 4:2:0 nearest, batch {batch}",
+    batch1080 = soa_inputs(
         [corpus.synthetic_rgb(1080, 1920, seed=args.seed + 10 + b) for b in range(batch)],
         "4:2:0", "nearest")
-    time_k1("4K 4:2:2 fancy, batch 1", [img4k], "4:2:2", "fancy")
+    k_ms, p_ms, k1_bound, k1_dev_ms = time_k1(f"1080p 4:2:0 nearest, batch {batch}", batch1080)
+    time_k1(f"1080p 4:2:0 fancy, batch {batch}",
+            (dataclasses.replace(batch1080[0], upsample="fancy"), *batch1080[1:]))
+    time_k1("4K 4:2:2 fancy, batch 1", soa_inputs([img4k], "4:2:2", "fancy"))
 
     reps = 20
 
@@ -1348,25 +1419,26 @@ def main() -> int:
         soa_ms = cuda_ms(lambda: kernel_fn(soas, tables), 50)
         b = bound(nbytes(*k6_planes, *k6_qts, *outs),
                   sum(c.numel() for c in k6_planes) // 64 * ops_per_block)
+        dev = device_ms(lambda: kernel_fn(views, tables), 20)
         print(f"{name}, the three planes of 1080p 4:2:0 "
               f"{[tuple(c.shape[:2]) for c in k6_planes]} blocks, {launches}: kernel "
               f"{ms} ms runs {kr} (contiguous SoA planes: {soa_ms} ms; device time by kernel "
-              f"{device_ms(lambda: kernel_fn(views, tables), 20)}); plain torch "
-              f"{plain_ms} ms runs {plr}; {bound_text(b)}  [{card}]")
-        return ms, plain_ms, b
+              f"{dev}); plain torch {plain_ms} ms runs {plr}; {bound_text(b)}  [{card}]")
+        return ms, plain_ms, b, sum(dev.values())
 
-    k5_ms, k5_plain_ms, k5_bound = time_planes(
+    k5_ms, k5_plain_ms, k5_bound, k5_dev_ms = time_planes(
         "K5 islow plane IDCT", idct_islow_plane.dequant_idct_islow_planes_soa,
         idct_islow_plane.dequant_idct_islow_plane_soa_reference, ISLOW_OPS_PER_BLOCK,
         "1 launch")
     k5_each = cuda_ms(lambda: [idct_islow_plane.dequant_idct_islow_plane_soa(blocks_as_soa(c), q)
                                for c, q in zip(k6_planes, k6_qts)], 50)
     print(f"K5 as one call per plane (3 launches of the same kernel): {k5_each} ms  [{card}]")
-    k6_ms, k6_plain_ms, k6_bound = time_planes(
-        "K6 float plane IDCT",
-        lambda planes, tables: [idct_float.dequant_idct_float_plane_soa(v, q)
-                                for v, q in zip(planes, tables)],
-        idct_float.dequant_idct_float_plane_soa_reference, FLOAT_OPS_PER_BLOCK, "3 launches")
+    k6_ms, k6_plain_ms, k6_bound, k6_dev_ms = time_planes(
+        "K6 float plane IDCT", idct_float.dequant_idct_float_planes_soa,
+        idct_float.dequant_idct_float_plane_soa_reference, FLOAT_OPS_PER_BLOCK, "1 launch")
+    k6_each = cuda_ms(lambda: [idct_float.dequant_idct_float_plane_soa(blocks_as_soa(c), q)
+                               for c, q in zip(k6_planes, k6_qts)], 50)
+    print(f"K6 as one call per plane (3 launches of the same kernel): {k6_each} ms  [{card}]")
 
     # One library call for K6's function: the IDCT as a transposed
     # convolution of the 64 coefficient planes with stride 8, the quant table
@@ -1396,10 +1468,13 @@ def main() -> int:
     for _ in range(3):
         library()
     k6_library_ms = (cuda_ms(library, 20) + cuda_ms(library, 20)) / 2
+    k6_library_dev = device_ms(library, 20)
     torch.backends.cudnn.allow_tf32 = tf32_before
     print(f"K6's function as one library call per plane "
           f"(torch.nn.functional.conv_transpose2d, stride 8, float32 input ready): "
-          f"{k6_library_ms} ms for the three planes, max abs diff vs K6 {lib_err}  [{card}]")
+          f"{k6_library_ms} ms for the three planes (device time by kernel "
+          f"{k6_library_dev}, sum {sum(k6_library_dev.values())}), max abs diff vs K6 "
+          f"{lib_err}  [{card}]")
 
     def host_ms(fn):
         fn()
@@ -1433,7 +1508,9 @@ def main() -> int:
           f"{e2e_ms} ms/frame  [{card}]")
 
     for name, kw in (("upload='pack'", {"upload": "pack"}), ("exact=False", {"exact": False}),
-                     ("out='yuv'", {})):
+                     ("out='yuv'", {}),
+                     ("exact=False, entropy='device'", {"exact": False, "entropy": "device"}),
+                     ("out='yuv', entropy='device'", {"entropy": "device"})):
         stage = "yuv" if "yuv" in name else "rgb"
         ms = host_ms(lambda: jt.decode(data1080, out=stage, device="cuda", **kw))
         print(f"whole decode jt.decode(device='cuda', {name}) 1080p 4:2:0 nearest: "
@@ -1525,7 +1602,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry(0, "pixel_fused", "jpeg_gpu_tpu/ops/pixel_fused.py:237",
-              max_err, k_ms, p_ms, k1_bound),
+              max_err, k_ms, p_ms, k1_bound, device_ms=k1_dev_ms),
         entry(1, "entropy_decode", "jpeg_gpu_tpu/ops/entropy_device.py:128",
               max(k2_err, k2_fused_err), k2_ms, k2_plain_ms, k2_bound,
               entries=["jgt_entropy_decode", "jgt_entropy_decode_fused", "jgt_entropy_lut"],
@@ -1538,9 +1615,10 @@ def main() -> int:
         entry(3, "pack_expand", "jpeg_gpu_tpu/ops/pack_device.py:42",
               k4_err, k4_ms, k4_plain_ms, k4_bound),
         entry(4, "idct_islow_plane", "jpeg_gpu_tpu/ops/idct_islow_pallas.py:54",
-              k5_err, k5_ms, k5_plain_ms, k5_bound),
+              k5_err, k5_ms, k5_plain_ms, k5_bound, device_ms=k5_dev_ms),
         entry(5, "idct_float", "jpeg_gpu_tpu/ops/idct_pallas.py:78",
-              k6_err, k6_ms, k6_plain_ms, k6_bound, k6_library_ms),
+              k6_err, k6_ms, k6_plain_ms, k6_bound, k6_library_ms, device_ms=k6_dev_ms,
+              library_device_ms=sum(k6_library_dev.values())),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

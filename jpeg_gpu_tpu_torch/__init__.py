@@ -8,8 +8,9 @@ YCbCr->RGB -- for the fused geometries in one hand-written CUDA kernel
 runs on the device too (``csrc/specsync_scan.cu``, K3, finds the MCU offsets
 of a stream without restart markers; ``csrc/entropy_decode.cu``, K2,
 decodes).  The YUV stage, grayscale and the other geometries run the plane
-IDCT ``csrc/idct_islow_plane.cu`` (K5) per component; ``exact=False`` takes
-the float IDCT ``csrc/idct_float.cu`` (K6); ``upload="pack"`` ships the
+IDCT ``csrc/idct_islow_plane.cu`` (K5), one launch for all components;
+``exact=False`` takes the float IDCT ``csrc/idct_float.cu`` (K6), likewise;
+``upload="pack"`` ships the
 packed (run, value) stream and expands it with ``csrc/pack_expand.cu`` (K4).
 ``device=None`` means the GPU; the CPU runs only for ``device="cpu"``, with
 each kernel's plain PyTorch version.  This package imports torch and numpy,

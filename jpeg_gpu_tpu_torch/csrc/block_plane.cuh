@@ -8,13 +8,11 @@
 //   blocks     (n, vb, hb, 8, 8): sj = 1,      sr = hb * 64, sc = 64.
 // Output: (n, vb * 8, hb * 8) uint8, row-major.
 //
-// Two ways to spread the work.  One thread per block and one launch per
-// plane (PlaneArgs, plane_block, load_block, store_row8: K6 today): in the
-// SoA layout neighbouring threads read neighbouring addresses of each
-// coefficient plane; in the block layout a thread reads its own 128
-// contiguous bytes with 16-byte loads.  Or one launch for up to kMaxPlanes
-// planes, each with its own table and output (PlaneSet: K5), the grid laid
-// over tiles of kTileBlocks blocks, plane after plane.
+// One launch takes up to kMaxPlanes planes, each with its own strides, grid,
+// quant tables and output (PlaneSet, by value); the grid is laid over tiles
+// of kTileBlocks blocks, plane after plane, and a tile never spans two
+// leading indices.  A plane has one quant table for all n (qstride 0) or one
+// per leading index (qstride 64: table n at quant + 64 n).
 
 #pragma once
 
@@ -23,79 +21,18 @@
 
 namespace jgt {
 
-constexpr int kPlaneThreads = 128;  // blocks (threads) per CUDA block
-
-struct PlaneArgs {
-  const int16_t* coefs;
-  const int32_t* quant;   // (64,) int32, one table for all n
-  uint8_t* out;
-  long long sn, sj, sr, sc;
-  int n, vb, hb;
-};
-
-// The block this thread owns; false past the end of the grid.
-__device__ __forceinline__ bool plane_block(const PlaneArgs& a, int& n, int& r,
-                                            int& c) {
-  const long long idx = (long long)blockIdx.x * kPlaneThreads + threadIdx.x;
-  n = blockIdx.y;
-  if (idx >= (long long)a.vb * a.hb) return false;
-  r = int(idx / a.hb);
-  c = int(idx % a.hb);
-  return true;
-}
-
-// The 64 raw coefficients of block (n, r, c) as ints, natural order.
-__device__ __forceinline__ void load_block(const PlaneArgs& a, int n, int r,
-                                           int c, int (&s)[64]) {
-  const int16_t* src = a.coefs + n * a.sn + r * a.sr + c * a.sc;
-  if (a.sj == 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int4* v = reinterpret_cast<const int4*>(src);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int4 w = v[i];
-      const int words[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        s[i * 8 + 2 * k] = int(int16_t(words[k] & 0xFFFF));
-        s[i * 8 + 2 * k + 1] = words[k] >> 16;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < 64; ++j) s[j] = int(src[j * a.sj]);
-  }
-}
-
-// Eight samples (already in 0..255) of pixel row u of block (n, r, c), as
-// one 8-byte store.
-__device__ __forceinline__ void store_row8(const PlaneArgs& a, int n, int r,
-                                           int c, int u, const int (&p)[8]) {
-  const size_t w = size_t(a.hb) * 8;
-  uint8_t* dst = a.out + (size_t(n) * a.vb * 8 + size_t(r) * 8 + u) * w + size_t(c) * 8;
-  uint2 v;
-  v.x = uint32_t(p[0]) | (uint32_t(p[1]) << 8) | (uint32_t(p[2]) << 16) |
-        (uint32_t(p[3]) << 24);
-  v.y = uint32_t(p[4]) | (uint32_t(p[5]) << 8) | (uint32_t(p[6]) << 16) |
-        (uint32_t(p[7]) << 24);
-  *reinterpret_cast<uint2*>(dst) = v;
-}
-
-// The quant table into shared memory (64 ints), then a barrier.
-__device__ __forceinline__ void load_quant(const PlaneArgs& a, int* q) {
-  for (int j = threadIdx.x; j < 64; j += kPlaneThreads) q[j] = a.quant[j];
-  __syncthreads();
-}
-
 // Up to kMaxPlanes planes for one launch, passed to the kernel by value.
 constexpr int kMaxPlanes = 4;
 constexpr int kTileBlocks = 32;   // 8x8 blocks a CUDA block takes
+constexpr int kDescWords = 11;    // 64-bit values a plane's descriptor holds
 
 struct PlaneDesc {
   const int16_t* coefs;
-  const int32_t* quant;   // (64,) int32, one table for all n
+  const int32_t* quant;   // (64,) int32 per table
   uint8_t* out;           // (n, vb * 8, hb * 8)
   long long sn, sj, sr, sc;
   int n, vb, hb;
+  int qstride;            // 0: one table; 64: a table per leading index
   int tiles;              // per leading index: ceil(vb * hb / kTileBlocks)
 };
 
@@ -117,14 +54,14 @@ __device__ __forceinline__ const PlaneDesc& plane_of_tile(const PlaneSet& set, i
   return p;
 }
 
-// Fill `set` from `d`, ten values per plane: the three pointers, the four
-// element strides, n, vb, hb.  Returns the number of CUDA blocks, or -1 for a
-// shape the kernels do not take.
+// Fill `set` from `d`, kDescWords values per plane: the three pointers, the
+// four element strides, n, vb, hb, the table stride (0 or 64).  Returns the
+// number of CUDA blocks, or -1 for a shape the kernels do not take.
 inline long long make_plane_set(const long long* d, int nplanes, PlaneSet& set) {
   if (nplanes < 1 || nplanes > kMaxPlanes) return -1;
   long long total = 0;
   set.nplanes = nplanes;
-  for (int i = 0; i < nplanes; ++i, d += 10) {
+  for (int i = 0; i < nplanes; ++i, d += kDescWords) {
     PlaneDesc& p = set.plane[i];
     p.coefs = reinterpret_cast<const int16_t*>(d[0]);
     p.quant = reinterpret_cast<const int32_t*>(d[1]);
@@ -134,9 +71,11 @@ inline long long make_plane_set(const long long* d, int nplanes, PlaneSet& set) 
     p.sr = d[5];
     p.sc = d[6];
     if (d[7] < 1 || d[8] < 1 || d[9] < 1 || d[8] * d[9] > 0x7FFFFFFF) return -1;
+    if (d[10] != 0 && d[10] != 64) return -1;
     p.n = int(d[7]);
     p.vb = int(d[8]);
     p.hb = int(d[9]);
+    p.qstride = int(d[10]);
     p.tiles = int((d[8] * d[9] + kTileBlocks - 1) / kTileBlocks);
     set.first_tile[i] = int(total);
     total += (long long)p.n * p.tiles;
@@ -144,11 +83,6 @@ inline long long make_plane_set(const long long* d, int nplanes, PlaneSet& set) 
   }
   set.first_tile[nplanes] = int(total);
   return total;
-}
-
-inline dim3 plane_grid(int n, int vb, int hb) {
-  const long long blocks = (long long)vb * hb;
-  return dim3(unsigned((blocks + kPlaneThreads - 1) / kPlaneThreads), unsigned(n));
 }
 
 }  // namespace jgt

@@ -1,5 +1,6 @@
 // The islow 8x8 inverse DCT (libjpeg's JDCT_ISLOW arithmetic), shared by the
-// fused RGB kernel (pixel_fused.cu) and the plane kernel (idct_islow_plane.cu).
+// fused RGB kernel (pixel_fused.cu) and the plane kernel (idct_islow_plane.cu),
+// which both run one 8-point pass a thread: columns, then rows.
 //
 // The same fixed-point steps as ops/idct_islow.py: 13-bit constants, two
 // passes, pass-1 descale by CONST_BITS - PASS1_BITS and final descale by
@@ -57,38 +58,5 @@ __device__ __forceinline__ void idct8(int (&c)[8], int bits) {
 }
 
 __device__ __forceinline__ int clamp255(int x) { return min(max(x, 0), 255); }
-
-// Dequantized coefficients s[u * 8 + v] of one block, in place, into clamped
-// u8-range samples: columns, then rows, then the level shift.
-__device__ __forceinline__ void idct_block(int (&s)[64]) {
-#pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    int t[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) t[u] = s[u * 8 + v];
-    idct8(t, CONST_BITS - PASS1_BITS);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) s[u * 8 + v] = t[u];
-  }
-#pragma unroll
-  for (int u = 0; u < 8; ++u) {
-    int t[8];
-#pragma unroll
-    for (int v = 0; v < 8; ++v) t[v] = s[u * 8 + v];
-    idct8(t, CONST_BITS + PASS1_BITS + 3);
-#pragma unroll
-    for (int v = 0; v < 8; ++v) s[u * 8 + v] = clamp255(t[v] + 128);
-  }
-}
-
-// Dequantize one block's 64 coefficients (`stride` elements apart) and turn
-// it into clamped u8-range samples s[u * 8 + v].
-__device__ __forceinline__ void block_samples(const int16_t* __restrict__ src,
-                                              size_t stride, const int* q,
-                                              int (&s)[64]) {
-#pragma unroll
-  for (int j = 0; j < 64; ++j) s[j] = int(src[j * stride]) * q[j];
-  idct_block(s);
-}
 
 }  // namespace jgt

@@ -17,9 +17,9 @@
 // Design:
 // * One launch for up to four planes (csrc/block_plane.cuh:PlaneSet, by
 //   value): each plane brings its own pointers, element strides, grid, quant
-//   table and output, and the CUDA blocks are laid over the planes' tiles one
-//   plane after the other.  A frame's three components cost one launch
-//   instead of three.
+//   table (or a table per leading index) and output, and the CUDA blocks are
+//   laid over the planes' tiles one plane after the other.  A frame's three
+//   components cost one launch instead of three.
 // * Eight threads per 8x8 block, 32 blocks (256 threads) per CUDA block: a
 //   thread holds one column, then one row -- 8 values, not 64 -- so eight
 //   times as many warps are resident as with a thread per block.
@@ -62,7 +62,7 @@ idct_islow_planes_kernel(const jgt::PlaneSet set) {
   const jgt::PlaneDesc& p = jgt::plane_of_tile(set, blockIdx.x, n, block0);
   const int nblocks = p.vb * p.hb;
   const int16_t* src = p.coefs + n * p.sn;
-  if (tid < 64) q[tid] = p.quant[tid];
+  if (tid < 64) q[tid] = p.quant[n * p.qstride + tid];   // this tile's leading index
   __syncthreads();
 
   // Stage the tile, dequantized: coefficient (u, v) of tile block i at
@@ -132,10 +132,11 @@ idct_islow_planes_kernel(const jgt::PlaneSet set) {
 
 }  // namespace
 
-// `desc`: ten 64-bit values per plane on the host -- the addresses of the
+// `desc`: eleven 64-bit values per plane on the host -- the addresses of the
 // int16 coefficients (addressed by the element strides of block_plane.cuh),
-// of the (64,) int32 quant table and of the (n, vb*8, hb*8) uint8 output
-// (8-byte aligned), then the strides sn, sj, sr, sc, then n, vb, hb -- for
+// of the int32 quant tables and of the (n, vb*8, hb*8) uint8 output (8-byte
+// aligned), then the strides sn, sj, sr, sc, then n, vb, hb, then the table
+// stride (0: one (64,) table; 64: an (n, 64) table per leading index) -- for
 // 1 to 4 planes.  One launch.  Returns cudaGetLastError() after it, or
 // cudaErrorInvalidValue for a shape the kernel does not take.
 extern "C" int jgt_idct_islow_planes(const long long* desc, int nplanes, void* stream) {

@@ -10,8 +10,8 @@ The port of ``jpeg_gpu_tpu/engine/decoder.py``: the same decode surface --
   device pipeline (engine/pipeline.py) on a chosen torch device.  On a CUDA
   device the RGB decode of the fused geometries runs the K1 kernel; the
   YUV stage, grayscale and the other geometries run K5 (exact) or K6
-  (``exact=False``) per component; ``upload="pack"`` ships the packed
-  (run, value) stream and expands it on the device (K4).
+  (``exact=False``), one launch for all components; ``upload="pack"``
+  ships the packed (run, value) stream and expands it on the device (K4).
 
 Every ``decode`` returns numpy arrays, as the reference's does.
 """
@@ -435,6 +435,7 @@ class TorchDecoder(Decoder):
 _BACKENDS = {
     "torch": TorchDecoder,
     "host": HostDecoder,
+    "xjpeg": HostDecoder,   # alias, as in the reference (--impl xjpeg)
 }
 
 

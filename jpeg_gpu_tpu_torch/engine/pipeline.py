@@ -4,10 +4,10 @@ The port of ``jpeg_gpu_tpu/engine/pipeline.py``.  Every function takes
 tensors that already sit on the target device (see :func:`to_torch_inputs`)
 and returns tensors on that device.  The fused RGB path
 (:func:`decode_rgb_soa`) goes through the K1 kernel; the other geometries
-and the YUV stage go through a standalone IDCT kernel -- K5 (islow, exact),
-one call for all components, or K6 (float, ``exact=False``), one call per
-component -- followed by plain
-PyTorch upsampling and colour ops, as the reference leaves those to XLA.
+and the YUV stage go through a standalone IDCT kernel -- K5 (islow, exact)
+or K6 (float, ``exact=False``), one call for all components -- followed by
+plain PyTorch upsampling and colour ops, as the reference leaves those to
+XLA.
 Every op accepts leading batch dimensions.
 """
 
@@ -90,14 +90,15 @@ def to_torch_inputs(
 
 def _sample_planes(spec: PipelineSpec, coefs, qtables):
     """Per-component full (MCU-aligned) sample planes, uint8: K5 for the
-    exact path, one launch for all components; K6 for the float one, a launch
-    per component.  The (..., vb, hb, 8, 8) blocks go in as strided views of
-    coefficient planes, without a copy."""
+    exact path, K6 for the float one, one launch for all components.  The
+    (..., vb, hb, 8, 8) blocks go in as strided views of coefficient planes,
+    without a copy; the tables as given, one per component or one per image
+    ((N, 1, 1, 8, 8), as the batch code passes them)."""
     views = [blocks_as_soa(coefs[ci]) for ci in range(spec.ncomps)]
     tables = list(qtables[: spec.ncomps])
     if spec.exact:
         return idct_islow_plane.dequant_idct_islow_planes_soa(views, tables)
-    return [idct_float.dequant_idct_float_plane_soa(v, q) for v, q in zip(views, tables)]
+    return idct_float.dequant_idct_float_planes_soa(views, tables)
 
 
 def decode_yuv(spec: PipelineSpec, coefs, qtables):

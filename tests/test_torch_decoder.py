@@ -8,9 +8,14 @@ the same bytes as ``jpeg_gpu_tpu.decode(data, impl="tpu")`` and
 
 import numpy as np
 import pytest
+import torch
+
+import jax.numpy as jnp
 
 import jpeg_gpu_tpu as jr
 import jpeg_gpu_tpu_torch as jt
+from jpeg_gpu_tpu.engine import pipeline as jpipe
+from jpeg_gpu_tpu_torch.engine import pipeline as tpipe
 from jpeg_gpu_tpu_torch.testing import corpus
 from jpeg_gpu_tpu_torch.ops import pixel_fused
 
@@ -281,3 +286,83 @@ def test_engine_default_device_is_the_card(name):
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         fn(*args)
+
+
+def test_xjpeg_is_an_alias_of_the_host_decoder():
+    """impl="xjpeg" names the host decoder, as in the reference."""
+    data = _enc("4:2:0", restart_interval=1)
+    dec = jt.get_decoder(data, impl="xjpeg", upsample="fancy")
+    assert isinstance(dec, jt.HostDecoder)
+    want = jt.get_decoder(data, impl="host", upsample="fancy")
+    np.testing.assert_array_equal(dec.decode(), want.decode())
+    for a, b in zip(_parts(dec.decode("yuv")), _parts(want.decode("yuv"))):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(jt.decode(data, impl="xjpeg"), jr.decode(data, impl="xjpeg"))
+
+
+# -- the unfused pipeline with a quant table per image ------------------------
+# (name, luma sampling, exact, upsample): grayscale, a 3-component geometry
+# the fused kernel does not take, and the float path.
+BATCH_GEOMS = [
+    ("gray", None, True, "nearest"),
+    ("h2v4", (2, 4), True, "nearest"),
+    ("h2v4", (2, 4), True, "fancy"),
+    ("4:2:0", (2, 2), False, "nearest"),
+    ("4:2:0", (2, 2), False, "fancy"),
+]
+
+
+def _batch_case(samp, h=37, w=45, n=3, seed=31):
+    """Random coefficient blocks of ``n`` images of one geometry and a
+    different quant table per image and component, (n, 1, 1, 8, 8) each, as
+    the reference's batch code hands them to decode_rgb."""
+    rng = np.random.default_rng(seed)
+    scale = np.maximum(1, 200 >> np.add.outer(np.arange(8), np.arange(8)))
+    sx, sy = samp or (1, 1)
+    nh, nv = -(-w // (8 * sx)), -(-h // (8 * sy))
+    grids = [(nv * sy, nh * sx)] + ([(nv, nh)] * 2 if samp else [])
+    coefs, qts = [], []
+    for vb, hb in grids:
+        c = rng.integers(-1, 2, size=(n, vb, hb, 8, 8)) * rng.integers(
+            0, scale + 1, size=(n, vb, hb, 8, 8))
+        c[..., 0, 0] = rng.integers(-120, 120, size=(n, vb, hb))
+        coefs.append(c.astype(np.int16))
+        qts.append(rng.integers(1, 40, size=(n, 1, 1, 8, 8)).astype(np.int32))
+    if samp:
+        cw, ch = -(-w // sx), -(-h // sy)
+        xd, yd = sx.bit_length() - 1, sy.bit_length() - 1
+        kw = dict(comp_sizes=((w, h), (cw, ch), (cw, ch)),
+                  comp_decs=((0, 0), (xd, yd), (xd, yd)),
+                  comp_samps=((sx, sy), (1, 1), (1, 1)))
+    else:
+        kw = dict(comp_sizes=((w, h),), comp_decs=((0, 0),), comp_samps=((1, 1),))
+    return coefs, qts, dict(width=w, height=h, **kw)
+
+
+@pytest.mark.parametrize("stage", ["yuv", "rgb"])
+@pytest.mark.parametrize("name,samp,exact,upsample", BATCH_GEOMS)
+def test_pipeline_tables_per_image_vs_reference(name, samp, exact, upsample, stage):
+    """pipeline.decode_yuv / decode_rgb on a batch of 3 images whose quant
+    tables differ, against the reference's jitted functions on the same
+    coefficients: equal on the exact path; within 1 on float planes and 2
+    on float RGB (ROADMAP Queue 3)."""
+    coefs, qts, kw = _batch_case(samp)
+    tspec = tpipe.PipelineSpec(**kw, exact=exact, upsample=upsample)
+    jspec = jpipe.PipelineSpec(**kw, exact=exact, upsample=upsample)
+    tfn = tpipe.decode_yuv if stage == "yuv" else tpipe.decode_rgb
+    jfn = jpipe.decode_yuv if stage == "yuv" else jpipe.decode_rgb
+    got = tfn(tspec, [torch.from_numpy(c) for c in coefs], [torch.from_numpy(q) for q in qts])
+    ref = jfn(jspec, tuple(jnp.asarray(c) for c in coefs), tuple(jnp.asarray(q) for q in qts))
+    got = [got] if stage == "rgb" else list(got)
+    ref = [ref] if stage == "rgb" else list(ref)
+    tol = 0 if exact else (1 if stage == "yuv" else 2)
+    for g, r in zip(got, ref):
+        g, r = g.numpy(), np.asarray(r)
+        assert g.dtype == np.uint8 and g.shape == r.shape and g.shape[0] == 3
+        assert _maxdiff(g, r) <= tol
+    # Each image decodes as it would alone, with its own tables.
+    for b in range(3):
+        one = tfn(tspec, [torch.from_numpy(c[b]) for c in coefs],
+                  [torch.from_numpy(q[b, 0, 0]) for q in qts])
+        one = [one] if stage == "rgb" else list(one)
+        assert all(torch.equal(g[b], o) for g, o in zip(got, one))

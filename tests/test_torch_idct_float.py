@@ -186,3 +186,72 @@ def test_blocks_form_on_gpu():
     ref = tfused.dequant_idct_pixels_reference(c, qt)
     assert got.shape == (777, 8, 8)
     assert int((got.int() - ref.int()).abs().max()) <= 1
+
+
+def _tables_per_index(seed, lead):
+    return np.random.default_rng(seed).integers(1, 50, size=lead + (1, 1, 8, 8)).astype(np.int32)
+
+
+@pytest.mark.parametrize("per_index", [False, True])
+def test_planes_in_one_call_vs_jax_plane_by_plane(per_index):
+    """dequant_idct_float_planes_soa on the CPU: three planes of their own
+    grids (views of blocks, contiguous planes), against the JAX plane
+    function plane by plane, within 1; with one table per plane or one per
+    leading index."""
+    shapes = [(2, 6, 8), (2, 3, 4), (2, 3, 4)]
+    blocks, tables = [], []
+    for i, shape in enumerate(shapes):
+        coefs, q = _case(20 + i, shape)
+        blocks.append(coefs)
+        tables.append(_tables_per_index(30 + i, shape[:1]) if per_index else q)
+    planes = [block_plane.blocks_as_soa(torch.from_numpy(c)) for c in blocks]
+    planes[1] = planes[1].contiguous()
+    got = tfused.dequant_idct_float_planes_soa(planes, [torch.from_numpy(q) for q in tables])
+    assert len(got) == 3
+    for g, c, q, p in zip(got, blocks, tables, planes):
+        ref = jidct.dequant_idct_float_plane(jnp.asarray(c), jnp.asarray(q))
+        assert g.dtype == torch.uint8 and tuple(g.shape) == np.asarray(ref).shape
+        assert _maxdiff(g.numpy(), ref) <= 1
+        assert torch.equal(g, tfused.dequant_idct_float_plane_soa(p, torch.from_numpy(q)))
+
+
+@pytest.mark.parametrize("bad", ["five planes", "tables", "table shape"])
+def test_planes_entry_rejects_bad_descriptors(bad):
+    c = block_plane.blocks_as_soa(torch.zeros((2, 3, 4, 8, 8), dtype=torch.int16))
+    q = torch.ones(64, dtype=torch.int32)
+    planes, tables = [c, c, c], [q, q, q]
+    if bad == "five planes":
+        planes, tables = planes * 2, tables * 2
+    elif bad == "tables":
+        tables = tables[:2]
+    else:
+        tables[1] = torch.ones((3, 64), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        tfused.dequant_idct_float_planes_soa(planes, tables)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_index", [False, True])
+@pytest.mark.parametrize("layout", ["soa", "view"])
+def test_planes_in_one_launch_on_gpu(layout, per_index):
+    """Several planes in one launch equal one call per plane, and their
+    plain versions within 1; with a table per plane or per leading index."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K6 kernel has no CPU mode")
+    shapes = [(3, 136, 240), (3, 68, 120), (3, 68, 120), (1, 1)]
+    planes, tables = [], []
+    for i, shape in enumerate(shapes):
+        coefs, q = _case(50 + i, shape)
+        soa = block_plane.blocks_as_soa(torch.from_numpy(coefs).cuda())
+        planes.append(soa.contiguous() if layout == "soa" else soa)
+        if per_index and len(shape) == 3:
+            q = _tables_per_index(60 + i, shape[:1])
+        tables.append(torch.from_numpy(q).cuda())
+    before = tfused.launches
+    got = tfused.dequant_idct_float_planes_soa(planes, tables)
+    assert tfused.launches == before + 1
+    single = [tfused.dequant_idct_float_plane_soa(p, q) for p, q in zip(planes, tables)]
+    ref = [tfused.dequant_idct_float_plane_soa_reference(p, q) for p, q in zip(planes, tables)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, s) for g, s in zip(got, single))
+    assert all(int((g.int() - r.int()).abs().max()) <= 1 for g, r in zip(got, ref))

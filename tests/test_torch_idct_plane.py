@@ -205,3 +205,103 @@ def test_kernel_vs_plain_on_gpu(shape, layout):
     torch.cuda.synchronize()
     assert tplane.launches == before + 1
     assert torch.equal(got, ref)
+
+
+# -- a quant table per leading index -----------------------------------------
+# (leading axes, table shape): every shape check_plane_args takes for a table
+# per leading index, the broadcast ones included.
+PER_INDEX_TABLES = [
+    ((3,), (3, 64)),
+    ((3,), (3, 8, 8)),
+    ((3,), (3, 1, 1, 8, 8)),
+    ((2, 3), (2, 3, 64)),
+    ((2, 3), (2, 3, 8, 8)),
+    ((2, 3), (2, 1, 64)),
+    ((2, 3), (3, 64)),
+    ((2, 3), (2, 3, 1, 1, 8, 8)),
+]
+
+
+def _per_index_case(lead, tshape, seed=40):
+    coefs, _ = _case(seed, lead + (5, 7), lim=1500)
+    q = np.random.default_rng(seed + 1).integers(1, 90, size=tshape).astype(np.int32)
+    # The table of each leading index, as (8, 8), by numpy broadcasting.
+    rest = tshape[:-1] if tshape[-1] == 64 else tshape[:-2]
+    if len(rest) == len(lead) + 2:
+        rest = rest[:-2]
+    full = np.broadcast_to(q.reshape(rest + (8, 8)), lead + (8, 8))
+    return coefs, q, full
+
+
+@pytest.mark.parametrize("lead,tshape", PER_INDEX_TABLES)
+def test_table_per_leading_index(lead, tshape):
+    """Each leading index takes its own table: equal to one call per index,
+    and to the JAX unfused function with the table broadcast as the batch
+    code broadcasts it."""
+    coefs, q, full = _per_index_case(lead, tshape)
+    c = torch.from_numpy(coefs)
+    got = tplane.dequant_idct_islow_plane_soa(block_plane.blocks_as_soa(c), torch.from_numpy(q))
+    assert got.shape == lead + (40, 56)
+    for idx in np.ndindex(*lead):
+        one = tplane.dequant_idct_islow_plane_soa(
+            block_plane.blocks_as_soa(c[idx]), torch.from_numpy(full[idx].copy()))
+        assert torch.equal(got[idx], one)
+    ref = jislow.dequant_idct_islow_plane(
+        jnp.asarray(coefs), jnp.asarray(full.reshape(lead + (1, 1, 8, 8))))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("tshape", [
+    (2, 64), (128,), (3, 32), (3, 8, 4), (3, 2, 1, 8, 8), (3, 1, 1, 64), (3, 64, 1),
+    (1, 3, 64)])
+def test_rejected_table_shapes(tshape):
+    """Tables that are neither one table nor one per leading index of (3,)."""
+    soa = torch.zeros((3, 64, 2, 2), dtype=torch.int16)
+    q = torch.ones(tshape, dtype=torch.int32)
+    with pytest.raises(ValueError, match="quant table"):
+        tplane.dequant_idct_islow_plane_soa(soa, q)
+    with pytest.raises(ValueError, match="quant table"):
+        block_plane.check_plane_args(soa, q)
+
+
+def test_check_plane_args_table_forms():
+    """One table comes back as (64,) int32, tables per index as (n, 64)."""
+    soa = torch.zeros((2, 3, 64, 1, 1), dtype=torch.int16)
+    for shape in [(64,), (8, 8), (1, 64), (1, 1, 1, 8, 8)]:
+        *_, q = block_plane.check_plane_args(soa, torch.ones(shape, dtype=torch.int64))
+        assert q.shape == (64,) and q.dtype == torch.int32
+    qs = torch.arange(6 * 64, dtype=torch.int32).reshape(2, 3, 1, 1, 8, 8)
+    *_, q = block_plane.check_plane_args(soa, qs)
+    assert q.shape == (6, 64) and torch.equal(q, qs.reshape(6, 64))
+
+
+def test_all_planes_in_one_call_with_tables_per_index():
+    """The multi-plane entry with a table per leading index on some planes
+    and one table on others: each plane equals its single call."""
+    coefs_a, qa, _ = _per_index_case((3,), (3, 1, 1, 8, 8), seed=41)
+    coefs_b, qb = _case(42, (4, 6), lim=1500)
+    planes = [block_plane.blocks_as_soa(torch.from_numpy(coefs_a)),
+              blocks_to_soa(torch.from_numpy(coefs_b))]
+    tables = [torch.from_numpy(qa), torch.from_numpy(qb)]
+    got = tplane.dequant_idct_islow_planes_soa(planes, tables)
+    for g, p, q in zip(got, planes, tables):
+        assert torch.equal(g, tplane.dequant_idct_islow_plane_soa(p, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead,tshape", PER_INDEX_TABLES[:4])
+def test_table_per_leading_index_on_gpu(lead, tshape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K5 kernel has no CPU mode")
+    coefs, q, _ = _per_index_case(lead, tshape)
+    soa = block_plane.blocks_as_soa(torch.from_numpy(coefs).cuda())
+    qt = torch.from_numpy(q).cuda()
+    other = blocks_to_soa(torch.from_numpy(_case(43, (17, 33), lim=1500)[0]).cuda())
+    q1 = torch.from_numpy(_case(43, (1,))[1]).cuda()
+    before = tplane.launches
+    got = tplane.dequant_idct_islow_planes_soa([soa, other], [qt, q1])
+    assert tplane.launches == before + 1
+    ref = [tplane.dequant_idct_islow_plane_soa_reference(soa, qt),
+           tplane.dequant_idct_islow_plane_soa_reference(other, q1)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))

@@ -170,3 +170,57 @@ def test_kernel_vs_plain_on_gpu(mode, upsample):
     torch.cuda.synchronize()
     assert tfused.launches == before + 1
     assert torch.equal(got, ref)
+
+
+# Widths whose pixel rows start at offsets that are not multiples of 16
+# bytes (3 W bytes a row), one frame 4200 wide and 10 high, and one of
+# several tiles each way.
+GPU_SIZES = [(17, 31), (10, 4200), (130, 250)]
+
+
+def _gpu_case(mode, upsample, hw, seed, lead=(), per_image=False):
+    sx, sy = GEOMS[mode]
+    coefs, qts, kw = _case(sx, sy, *hw, seed=seed, lead=lead)
+    spec = tpipeline.PipelineSpec(**kw, upsample=upsample)
+    soa, tq = _torch_soa(coefs, qts, sx, sy, device="cuda")
+    if per_image:
+        rng = np.random.default_rng(seed + 1)
+        tq = tuple(torch.from_numpy(rng.integers(1, 32, size=lead + (64,)).astype(np.int32))
+                   .cuda() for _ in range(3))
+    return tpipeline.fused_soa_args(spec, (sx, sy), soa, tq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", GPU_SIZES)
+@pytest.mark.parametrize("upsample", ["nearest", "fancy"])
+@pytest.mark.parametrize("mode", list(GEOMS))
+def test_kernel_vs_plain_unaligned_rows_on_gpu(mode, upsample, hw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    args, kwargs = _gpu_case(mode, upsample, hw, seed=sum(hw))
+    before = tfused.launches
+    got = tfused.decode_rgb_fused_soa(*args, **kwargs)
+    ref = tfused.decode_rgb_fused_soa_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert tfused.launches == before + 1
+    assert got.shape == hw + (3,) and torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("upsample", ["nearest", "fancy"])
+@pytest.mark.parametrize("mode", list(GEOMS))
+def test_kernel_batch_of_odd_frames_per_image_tables_on_gpu(mode, upsample):
+    """Three 37x53 frames in one launch, a different table set per image:
+    the images after the first start at offsets that are not multiples of
+    16 bytes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU mode")
+    args, kwargs = _gpu_case(mode, upsample, (37, 53), seed=12, lead=(3,), per_image=True)
+    got = tfused.decode_rgb_fused_soa(*args, **kwargs)
+    ref = tfused.decode_rgb_fused_soa_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 37, 53, 3) and torch.equal(got, ref)
+    one = tfused.decode_rgb_fused_soa_reference(
+        args[0][1], args[1][1], args[2][1], args[3][1], args[4][1], *args[5:], **kwargs)
+    assert torch.equal(got[1], one)
+
