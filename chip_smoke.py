@@ -80,7 +80,33 @@
    without restart markers went through the device index scan (no serial
    fallback).  Then one corrupted restart-marked frame with
    ``on_error="zero"`` equals the CPU port's salvage.
-7. Timings with CUDA events after warm-up, each kernel and its plain
+7. The corpus, BASELINE.json config 4 on one card: 256 images of 256x256
+   4:2:0 with a restart marker every MCU (32 distinct images from the
+   package's encoder, seeds 100-131 and qualities 70-95, encoded by the
+   worker processes from phase 1 on, repeated to 256: 32 Huffman and quant
+   table sets in one bucket), through ``engine.batch`` with the launch
+   counts set to 0 just before each call: ``decode_batch_device_resident``
+   and ``decode_batch_device`` on the card, each one K2 launch (plus its
+   table kernel, once for all 256 table sets) and one K1 launch, every
+   output byte-identical to the per-image ``TorchDecoder(device="cuda",
+   entropy="device")``, the first 8 equal to ``decode_batch_device`` on the
+   CPU, the flags clean; an image corrupted in a corpus of 16 named by its
+   index, and salvaged with ``on_error="zero"`` as its single-image decode
+   is.  The bucket's host clock split by stage, Mpix/s resident, with the
+   download and with host entropy, and the device time by kernel from
+   torch.profiler beside K2's and K1's bounds at the corpus's shapes.
+   Then a mixed corpus -- 1080p 4:2:0 with a restart marker per MCU, two
+   restart-marked 512x512 gray frames, and a 1080p frame without restart
+   markers too large for one segment (the host fallback) --
+   through ``decode_batch`` (host entropy), ``decode_batch_device`` and
+   ``decode_batch_device(exact=False)``, each output held to the CPU path
+   and each call's launches of K1, K2, K5 and K6 at their stated values;
+   the command line (``-b 10`` with host entropy and with ``--no-cpu``) on
+   a temporary file; and the libjpeg backend, which raises
+   JpegUnsupportedError for each stage whose library (a loadable libjpeg
+   for the shim's cuts, Pillow for RGB) the machine lacks and equals the
+   port for each stage it serves.
+8. Timings with CUDA events after warm-up, each kernel and its plain
    version in turns (plain, kernel, kernel, plain): K1 for coefs->RGB of
    1080p 4:2:0 nearest and fancy at batch 8 and of the 4K 4:2:2 fancy
    frame, with its device time and swept over tiles of 1, 2 and 4 MCU
@@ -118,11 +144,14 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import json
 import multiprocessing
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -163,6 +192,58 @@ def sweep_encode(job):
     seed, mode, quality = job
     return corpus.own_jpeg(corpus.synthetic_rgb(1080, 1920, seed=seed), subsampling=mode,
                            quality=quality).data
+
+
+def corpus_encode(job):
+    """(seed, quality) -> one image of BASELINE.json config 4's corpus: 256x256
+    4:2:0 with a restart marker every MCU (the shape of
+    scripts/bench_corpus_resident.py).  Runs in a worker process."""
+    from jpeg_gpu_tpu_torch.testing import corpus
+
+    seed, quality = job
+    return corpus.own_jpeg(corpus.synthetic_rgb(256, 256, seed=seed), subsampling="4:2:0",
+                           quality=quality, restart_interval=1).data
+
+
+# What each stage of engine/batch.py's _decode_bucket_device does, by the
+# name it marks the stage with.
+BUCKET_STAGES = {
+    "corpus plan": "build_corpus_plan (the bucket's streams and tables stacked)",
+    "upload": "H2D of bits, maps and tables, one pinned copy",
+    "entropy": "K2: its table kernel for every table set, then the row form, one launch each",
+    "assembly": "assembly, one call with the image axis in front",
+    "pixels": "K1, one launch, a table row per image",
+    "flags": "per-image flags reduced on the card",
+}
+
+
+def bucket_split(datas, dev, reps: int, kernels):
+    """Mean host-clock ms of each stage of decode_batch_device_resident on a
+    corpus of one bucket: the engine's own bucket decode with a sync at each
+    stage it marks; the last pass's RGB tensor and its launch counts."""
+    from jpeg_gpu_tpu_torch.engine import batch
+
+    split = {}
+    for i in range(reps + 1):  # the first pass warms up
+        if i == 1:
+            split.clear()
+        for mod in kernels:
+            mod.launches = 0
+        t = [time.perf_counter()]
+
+        def mark(name):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            split[name] = split.get(name, 0.0) + (t1 - t[0]) * 1e3
+            t[0] = t1
+
+        (bucket,), fallback = batch._device_buckets(datas, True, "nearest")
+        assert not fallback
+        mark("host parse + build_plan per image")
+        rgb, err_img = batch._decode_bucket_device(bucket, "raise", dev, mark)
+        batch._raise_on_flags(err_img, bucket.indices)
+        mark("D2H of the NI flags")
+    return {k: v / reps for k, v in split.items()}, rgb, [mod.launches for mod in kernels]
 
 
 def card_line() -> str:
@@ -236,6 +317,26 @@ def symbol_count(coefs) -> int:
         c = np.asarray(c).reshape(-1, 64)
         n += c.shape[0] + int(np.count_nonzero(c[:, 1:])) + int((c[:, 63] == 0).sum())
     return n
+
+
+def segment_words(parsed) -> int:
+    """32-bit words of entropy data in a scan's segments once destuffed, each
+    segment rounded up to whole words: what a decoder of the scan must read."""
+    d = np.frombuffer(parsed.data, np.uint8)
+    removed = np.zeros(d.size + 1, np.int64)   # stuffed zeros before byte k
+    removed[2:] = np.cumsum((d[:-1] == 0xFF) & (d[1:] == 0))
+    starts, ends = parsed.segments[:, 0], parsed.segments[:, 1]
+    lens = ends - starts - (removed[ends] - removed[starts])
+    return int(((lens + 3) // 4).sum())
+
+
+def k2_bytes(parsed, n_segments: int, steps: int, tables) -> int:
+    """Bytes K2's row form must move for these scans: every segment's
+    destuffed words and the tables in, each segment's coefficients and flag
+    out.  The padding of its layout (lanes past an image's last segment,
+    words past a segment's end) is none of the function's work."""
+    return (4 * sum(segment_words(p) for p in parsed) + sum(t.nbytes for t in tables)
+            + len(parsed) * n_segments * (steps * 64 * 2 + 4))
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -312,6 +413,10 @@ def main() -> int:
     sweep_pool = concurrent.futures.ProcessPoolExecutor(
         max_workers=3, mp_context=multiprocessing.get_context("spawn"))
     sweep_data = [sweep_pool.submit(sweep_encode, job) for job in sweep_jobs]
+    # BASELINE.json config 4's corpus: 32 distinct images (seeds 100-131,
+    # qualities 70-95), each with its own Huffman and quant tables.
+    corpus_jobs = [(100 + k, 70 + (25 * k) // 31) for k in range(32)]
+    corpus_data = [sweep_pool.submit(corpus_encode, job) for job in corpus_jobs]
     sweep_pool.shutdown(wait=False)   # the workers end with their last job
 
     def soa_inputs(images, mode, upsample):
@@ -1103,7 +1208,208 @@ def main() -> int:
           "equal to the CPU port's salvage")
 
     phase_done(6)
-    # -- 7. timings ----------------------------------------------------------
+    # -- 7. the corpus: BASELINE.json config 4 on one card -------------------
+    from jpeg_gpu_tpu_torch import cli
+    from jpeg_gpu_tpu_torch.engine import batch
+    from jpeg_gpu_tpu_torch.errors import JpegFormatError, JpegUnsupportedError
+    from jpeg_gpu_tpu_torch.host import oracle_native
+
+    distinct = [f.result() for f in corpus_data]
+    n_corpus = 256
+    corpus_datas = [distinct[k % len(distinct)] for k in range(n_corpus)]
+    (bucket,), fallback = batch._device_buckets(corpus_datas, True, "nearest")
+    assert not fallback and len(bucket.indices) == n_corpus
+    n_sets = len({p.counts.tobytes() + p.symbols.tobytes() for p in bucket.plans})
+    assert n_sets == len(distinct), n_sets
+    corpus_mpix = n_corpus * 256 * 256 / 1e6
+
+    def run_counted(fn):
+        """fn() with the launch counts set to 0 just before; (out, counts)."""
+        for mod in kernels:
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, [mod.launches for mod in kernels]
+
+    (rgb_res, err_res), res_counts = run_counted(
+        lambda: batch.decode_batch_device_resident(corpus_datas, device="cuda"))
+    corpus_outs, dl_counts = run_counted(
+        lambda: batch.decode_batch_device(corpus_datas, device="cuda"))
+    print(f"corpus of {n_corpus} images 256x256 4:2:0 R=1 ({len(distinct)} distinct, "
+          f"{n_sets} Huffman table sets, one bucket): launches resident {res_counts}, "
+          f"with download {dl_counts} (K1..K6)")
+    # One bucket: K2 once and its table kernel once, K1 once; nothing else.
+    for counts in (res_counts, dl_counts):
+        assert counts == [1, 2, 0, 0, 0, 0], counts
+    assert rgb_res.is_cuda and err_res.is_cuda
+    assert tuple(rgb_res.shape) == (n_corpus, 256, 256, 3) and rgb_res.dtype == torch.uint8
+    assert not err_res.any(), "clean corpus flagged"
+    rgb_res_np = rgb_res.cpu().numpy()
+    single = {}
+    for k, (data, out) in enumerate(zip(corpus_datas, corpus_outs)):
+        if id(data) not in single:
+            single[id(data)] = jt.get_decoder(data, device="cuda", entropy="device").decode()
+        assert np.array_equal(out, single[id(data)]), k
+        assert np.array_equal(rgb_res_np[k], out), k
+    cpu8 = batch.decode_batch_device(corpus_datas[:8], device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(cpu8, corpus_outs[:8]))
+    print(f"corpus: all {n_corpus} outputs (resident and downloaded) byte-identical to "
+          f"per-image TorchDecoder(device='cuda', entropy='device'); the first 8 equal "
+          f"decode_batch_device(device='cpu'); flags clean")
+    corpus_launches = [a + b for a, b in zip(res_counts, dl_counts)]
+
+    bad_corpus = list(corpus_datas[:16])
+    bad_corpus[5] = corrupt_segment(bad_corpus[5], 40)
+    try:
+        batch.decode_batch_device(bad_corpus, device="cuda")
+    except JpegFormatError as e:
+        assert "image 5 " in str(e), e
+        print(f"corpus with image 5 corrupted: raised JpegFormatError: {e}")
+    else:
+        raise AssertionError("the corrupted image was not flagged")
+    rgb_bad, err_bad = batch.decode_batch_device_resident(bad_corpus, on_error="zero",
+                                                          device="cuda")
+    flags = err_bad.cpu().numpy()
+    assert flags[5] != 0 and not np.delete(flags, 5).any(), flags
+    salvaged = jt.decode(bad_corpus[5], device="cuda", entropy="device", on_error="zero")
+    assert np.array_equal(rgb_bad[5].cpu().numpy(), salvaged)
+    print(f"corpus with image 5 corrupted, on_error='zero': flags {flags.tolist()}, image 5 "
+          f"equal to its single-image salvage")
+
+    split, rgb_split, split_counts = bucket_split(corpus_datas, dev, 5, kernels)
+    assert torch.equal(rgb_split, rgb_res) and split_counts == res_counts, split_counts
+    print(f"corpus bucket stages, {n_corpus} images, host clock with a sync after each "
+          f"stage, mean of 5  [{card}]:")
+    for stage, ms in split.items():
+        print(f"  {BUCKET_STAGES.get(stage, stage)}: {ms} ms")
+    print(f"  sum: {sum(split.values())} ms")
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return runs
+
+    corpus_ms = {}
+    for name, fn in (
+            ("resident (decode_batch_device_resident)",
+             lambda: batch.decode_batch_device_resident(corpus_datas, device="cuda")),
+            ("with download (decode_batch_device)",
+             lambda: batch.decode_batch_device(corpus_datas, device="cuda")),
+            ("host entropy (decode_batch)",
+             lambda: batch.decode_batch(corpus_datas, device="cuda"))):
+        runs = wall_ms(fn, 3)
+        corpus_ms[name] = min(runs)
+        print(f"corpus {name}, {n_corpus} images, {corpus_mpix} Mpix: runs {runs} ms; "
+              f"best {corpus_mpix / min(runs) * 1e3} Mpix/s, "
+              f"{n_corpus / min(runs) * 1e3} images/s  [{card}]")
+    corpus_dev = device_ms(
+        lambda: batch.decode_batch_device_resident(corpus_datas, device="cuda"), 3)
+    print(f"corpus resident decode, device time by kernel and copy (torch.profiler, per "
+          f"call): {corpus_dev}; sum {sum(corpus_dev.values())} ms of "
+          f"{corpus_ms['resident (decode_batch_device_resident)']} ms wall  [{card}]")
+    corpus_k1_dev = sum(ms for k, ms in corpus_dev.items() if "fused_rgb_kernel" in k)
+    # K2's decode and its table kernel (csrc/entropy_decode.cu).
+    corpus_k2_dev = sum(ms for k, ms in corpus_dev.items()
+                        if "decode_kernel" in k or "symbol_lut_kernel" in k)
+    assert corpus_k2_dev > 0, corpus_dev
+    cp = segments.build_corpus_plan(bucket.plans)
+    corpus_k2_bound = bound(
+        k2_bytes(bucket.parsed, cp.n_segments, cp.comp_of_step.size, cp.kernel_tables),
+        sum(symbol_count(entropy_native.decode_scan(parse(d)).coefs) for d in corpus_datas)
+        * HUFFMAN_OPS_PER_SYMBOL)
+    # The same work in the padded layout the kernel reads and writes: every
+    # lane of every segment batch, every word of NW.
+    k2_layout_bytes = (cp.streams.nbytes + sum(t.nbytes for t in cp.kernel_tables)
+                       + cp.streams.shape[0] * 1024 * (cp.comp_of_step.size * 64 * 2 + 4))
+    blocks = n_corpus * cp.n_mcus * bucket.parsed[0].header.blocks_per_mcu()
+    corpus_k1_bound = bound(blocks * 64 * 2 + n_corpus * 3 * 64 * 4 + rgb_res.numel(),
+                            blocks * ISLOW_OPS_PER_BLOCK
+                            + rgb_res.numel() // 3 * COLOUR_OPS_PER_PIXEL)
+    print(f"corpus K2 (decode and table kernel) device {corpus_k2_dev} ms, "
+          f"{bound_text(corpus_k2_bound)}; its padded layout moves {k2_layout_bytes} B "
+          f"({k2_layout_bytes / PEAK_BYTES_PER_S * 1e3} ms); K1 device {corpus_k1_dev} ms, "
+          f"{bound_text(corpus_k1_bound)}  [{card}]")
+
+    # A mixed corpus: a restart-marked 1080p frame, two restart-marked gray
+    # frames (a K5 bucket), and a 1080p frame without restart markers that
+    # is too large for one segment (the host fallback).
+    grays = [corpus.own_jpeg(corpus.synthetic_rgb(512, 512, seed=args.seed + 60 + k)[..., 1]
+                             .copy(), quality=85, restart_interval=16).data for k in range(2)]
+    mixed = [data1080r, grays[0], data1080, grays[1]]
+    try:
+        segments.build_plan(parse(data1080))
+    except JpegUnsupportedError:
+        pass
+    else:
+        raise AssertionError("the 1080p frame without restart markers fits one segment")
+    # (name, call, launches expected of K1..K6, tolerance to the CPU path)
+    mixed_runs = [
+        ("decode_batch (host entropy)",
+         lambda: batch.decode_batch(mixed, device="cuda"), [1, 0, 0, 0, 1, 0], True),
+        ("decode_batch_device",
+         lambda: batch.decode_batch_device(mixed, device="cuda"), [2, 4, 0, 0, 1, 0], True),
+        ("decode_batch_device exact=False",
+         lambda: batch.decode_batch_device(mixed, exact=False, device="cuda"),
+         [0, 4, 0, 0, 0, 3], False),
+    ]
+    for name, fn, want, exact in mixed_runs:
+        outs, counts = run_counted(fn)
+        assert counts == want, (name, counts)
+        corpus_launches = [a + b for a, b in zip(corpus_launches, counts)]
+        diffs = []
+        for data, out in zip(mixed, outs):
+            exact_cpu = cpu_decode(data, upsample="nearest")
+            cpu = exact_cpu if exact else cpu_decode(data, upsample="nearest", exact=False)
+            assert out.shape == cpu.shape and out.dtype == cpu.dtype, (name, out.shape)
+            diffs.append(maxdiff(out, cpu))
+            assert exact or maxdiff(out, exact_cpu) <= 4, name
+        assert max(diffs) <= (0 if exact else 2), (name, diffs)
+        print(f"mixed corpus {name}: launches {counts} (K1..K6), max abs diff vs the CPU "
+              f"path per image {diffs}")
+    main_launches = [a + b for a, b in zip(main_launches, corpus_launches)]
+
+    # The command line on a file, with host entropy and with --no-cpu.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/corpus0.jpg"
+        with open(path, "wb") as f:
+            f.write(distinct[0])
+        for argv in (["-b", "10", "--device", "cuda", path], ["-b", "10", "--no-cpu", path]):
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main(argv)
+            line = text.getvalue().strip()
+            print(f"cli {' '.join(argv[:-1])} <file>: rc {rc}: {line}  [{card}]")
+            assert rc == 0 and "FPS" in line, (argv, rc, line)
+
+    # The libjpeg oracle needs a loadable system libjpeg (the shim's cuts) and
+    # Pillow (RGB); where either is missing its stages raise cleanly.
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    have_shim = oracle_native.available()
+    for stage, have in (("yuv", have_shim), ("rgb", have_pil)):
+        try:
+            got = jt.decode(distinct[0], out=stage, impl="libjpeg")
+        except JpegUnsupportedError as e:
+            assert not have, (stage, e)
+            print(f"impl='libjpeg' out={stage}: unavailable here, JpegUnsupportedError: {e}")
+        else:
+            assert have, stage
+            ref = jt.decode(distinct[0], out=stage, device="cuda",
+                            upsample="fancy" if stage == "rgb" else "nearest")
+            assert maxdiff(got, ref) == 0, stage
+            print(f"impl='libjpeg' out={stage}: equal to the port on the card")
+
+    phase_done(7)
+    # -- 8. timings ----------------------------------------------------------
     def stage_split(data, reps):
         """Mean host-clock ms of each stage of an entropy='device' RGB decode
         (nearest) as decode_image_device runs it, with a sync after each."""
@@ -1257,8 +1563,10 @@ def main() -> int:
             t[7][None]),
         20, 1)
     symbols1080 = symbol_count(scan1080.coefs)
-    k2_out = entropy_device.decode_segments_device(*t)
-    k2_bound = bound(nbytes(*t, *k2_out), symbols1080 * HUFFMAN_OPS_PER_SYMBOL)
+    k2_bound = bound(
+        k2_bytes([parse(data1080r)], plan1080.n_segments, plan1080.comp_of_step.size,
+                 plan1080.kernel_tables),
+        symbols1080 * HUFFMAN_OPS_PER_SYMBOL)
     k2_dev = device_ms(lambda: entropy_device.decode_segments_device(*t, lut=row_lut), 20)
     k2_tables_ms = [cuda_ms(lambda: entropy_device.symbol_lut(*t[5:]), 50) for _ in range(2)]
     print(f"K2 Huffman decode, row form, 1080p 4:2:0 R=1 plan {tuple(t[0].shape)}, "
@@ -1583,7 +1891,7 @@ def main() -> int:
         print(f"  sum: {sum(split.values())} ms")
     busy_share(data1080, card)
 
-    phase_done(7)
+    phase_done(8)
     def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None, **more):
         return {
             "name": stem,
@@ -1602,14 +1910,17 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry(0, "pixel_fused", "jpeg_gpu_tpu/ops/pixel_fused.py:237",
-              max_err, k_ms, p_ms, k1_bound, device_ms=k1_dev_ms),
+              max_err, k_ms, p_ms, k1_bound, device_ms=k1_dev_ms,
+              corpus_device_ms=corpus_k1_dev, corpus_bound_ms=corpus_k1_bound["bound_ms"]),
         entry(1, "entropy_decode", "jpeg_gpu_tpu/ops/entropy_device.py:128",
               max(k2_err, k2_fused_err), k2_ms, k2_plain_ms, k2_bound,
               entries=["jgt_entropy_decode", "jgt_entropy_decode_fused", "jgt_entropy_lut"],
               tables_kernel_ms=k2_tables_ms, fused_ms=fused_ms["1080p 4:2:0"][0],
               fused_plain_ms=fused_ms["1080p 4:2:0"][1],
               fused_bound_ms=fused_ms["1080p 4:2:0"][2]["bound_ms"],
-              fused_replaces_chain_ms=fused_ms["1080p 4:2:0"][3]),
+              fused_replaces_chain_ms=fused_ms["1080p 4:2:0"][3],
+              corpus_device_ms=corpus_k2_dev, corpus_bound_ms=corpus_k2_bound["bound_ms"],
+              corpus_layout_bytes_ms=k2_layout_bytes / PEAK_BYTES_PER_S * 1e3),
         entry(2, "specsync_scan", "jpeg_gpu_tpu/ops/specsync_device.py:98",
               k3_err, k3_ms, k3_plain_ms, k3_bound, tables_kernel_ms=k3_tables_ms),
         entry(3, "pack_expand", "jpeg_gpu_tpu/ops/pack_device.py:42",

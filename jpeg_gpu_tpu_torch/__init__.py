@@ -37,6 +37,7 @@ from jpeg_gpu_tpu_torch.engine.stages import OutputStage
 from jpeg_gpu_tpu_torch.engine.decoder import (
     Decoder,
     HostDecoder,
+    PilDecoder,
     TorchDecoder,
     get_decoder,
     decode,
@@ -59,6 +60,7 @@ __all__ = [
     "OutputStage",
     "Decoder",
     "HostDecoder",
+    "PilDecoder",
     "TorchDecoder",
     "get_decoder",
     "decode",

@@ -5,6 +5,8 @@ The port of ``jpeg_gpu_tpu/engine/decoder.py``: the same decode surface --
 
 * :class:`HostDecoder`  -- host entropy decode + the plain PyTorch ops on
   the CPU, cropping before fancy upsampling (an independent CPU path);
+* :class:`PilDecoder`   -- the libjpeg-turbo oracle (Pillow for RGB, a
+  ctypes shim over the system libjpeg for the QUANT/DCT and YUV cuts);
 * :class:`TorchDecoder` -- entropy decode on the host, or on the device
   with ``entropy="device"`` (engine/device_entropy.py: K3 and K2), then the
   device pipeline (engine/pipeline.py) on a chosen torch device.  On a CUDA
@@ -432,9 +434,70 @@ class TorchDecoder(Decoder):
         return _numpy(dev)
 
 
+class PilDecoder(Decoder):
+    """libjpeg-turbo oracle backend.
+
+    RGB via Pillow; QUANT/DCT and YUV via the ctypes shim over the system
+    libjpeg (host/oracle_native.py), mirroring the reference vtbl's
+    ``jpeg_read_coefficients`` / ``jpeg_read_raw_data`` cuts.  PACK has no
+    libjpeg analogue.  Where Pillow or the shim is missing (no system
+    libjpeg headers), the stages they serve raise JpegUnsupportedError.
+    """
+
+    name = "pil"
+
+    def io_bytes(self, out: StageArg = OutputStage.RGB) -> dict:
+        return {"upload": 0, "download": 0, "tables": 0, "payload": "none"}
+
+    def host_entropy(self, out: StageArg = "rgb"):
+        return None  # libjpeg does its own entropy work inside decode()
+
+    def decode(self, out: StageArg = OutputStage.RGB):
+        from jpeg_gpu_tpu_torch.host import oracle_native
+        from jpeg_gpu_tpu_torch.testing import oracle
+
+        stage = _stage(out)
+        if stage in (OutputStage.QUANT, OutputStage.DCT, OutputStage.YUV):
+            if not oracle_native.available():
+                raise JpegUnsupportedError(
+                    "libjpeg oracle shim unavailable (no system libjpeg); "
+                    f"PIL backend cannot serve the {stage.value} stage"
+                )
+            if stage == OutputStage.YUV:
+                return YuvOutput(planes=oracle_native.libjpeg_raw_yuv(self.data))
+            coefs, qts = oracle_native.libjpeg_coefficients(self.data)
+            if stage == OutputStage.QUANT:
+                return CoefOutput(coefs=coefs)
+            # DCT = dequantized coefficients, int32 (same contract as
+            # _coef_stage; libjpeg's own qtables do the dequant).
+            dq = [
+                c.astype(np.int32) * q.astype(np.int32).reshape(8, 8)
+                for c, q in zip(coefs, qts)
+            ]
+            return CoefOutput(coefs=dq)
+        if stage != OutputStage.RGB:
+            raise JpegUnsupportedError(
+                f"PIL oracle backend only provides rgb/yuv/quant/dct, "
+                f"not {stage.value}"
+            )
+        try:
+            import PIL  # noqa: F401
+        except ImportError:
+            raise JpegUnsupportedError(
+                "Pillow is not installed; PIL backend cannot serve the rgb stage"
+            ) from None
+        hdr = self.decode_header()
+        if hdr.ncomps == 1:
+            y = oracle.pil_decode_gray(self.data)
+            return np.repeat(y[..., None], 3, axis=-1)
+        return oracle.pil_decode_rgb(self.data)
+
+
 _BACKENDS = {
     "torch": TorchDecoder,
     "host": HostDecoder,
+    "pil": PilDecoder,
+    "libjpeg": PilDecoder,  # oracle alias, as in the reference (--impl libjpeg)
     "xjpeg": HostDecoder,   # alias, as in the reference (--impl xjpeg)
 }
 

@@ -74,3 +74,8 @@ def _build(stem: str, extra_flags=()) -> Optional[pathlib.Path]:
 def shared_object_path() -> Optional[pathlib.Path]:
     """The xjpeg host entropy decoder .so (no external deps)."""
     return _build("xjpeg_host")
+
+
+def oracle_object_path() -> Optional[pathlib.Path]:
+    """The libjpeg-turbo oracle shim .so (links the system -ljpeg)."""
+    return _build("jpeg_oracle", extra_flags=("-ljpeg",))

@@ -747,7 +747,7 @@ def apply_dc_base(kernel_out, dc_base, comp_map):
 
 
 def assemble_components(
-    kernel_out: torch.Tensor,       # (B, T, 64, 8, 128) int16
+    kernel_out: torch.Tensor,       # ([NI,] B, T, 64, 8, 128) int16
     n_segments: int,
     mcus_per_segment: int,
     n_mcus: int,
@@ -770,8 +770,13 @@ def assemble_components(
     raster order, so the SoA planes need only outer-axis moves; that fast
     path picks itself, and ``force_general`` exists for the test that
     holds it to the general relayout.
+
+    A leading image axis (a corpus bucket: ``kernel_out`` of shape (NI, B,
+    ...), each image's B segment batches in a row) carries through every
+    step, and each result gains it in front: one call for the bucket, equal
+    image by image to a call per image.
     """
-    b, t = kernel_out.shape[:2]
+    *lead, b, t = kernel_out.shape[:-3]
     nseg_slots = b * SLOTS
     bpm = sum(hs * vs for hs, vs in comp_geometry)
     assert t == mcus_per_segment * bpm
@@ -780,29 +785,30 @@ def assemble_components(
         # Slot (b, s, l) holds exactly MCU b*1024 + s*128 + l, and block
         # step t is the block-in-MCU index.
         assert n_segments == n_mcus
-        x = kernel_out.reshape(b, bpm, 64, SLOTS).permute(1, 2, 0, 3)
-        x = x.reshape(bpm, 64, nseg_slots)[:, :, :n_mcus]
+        x = kernel_out.reshape(*lead, b, bpm, 64, SLOTS).movedim(-4, -2)
+        x = x.reshape(*lead, bpm, 64, nseg_slots)[..., :n_mcus]
         off = 0
         for hs, vs in comp_geometry:
             nb = hs * vs
-            out.append(x[off:off + nb].reshape(vs, hs, 64, nvmb, nhmb).contiguous())
+            out.append(x[..., off:off + nb, :, :].reshape(*lead, vs, hs, 64, nvmb, nhmb)
+                       .contiguous())
             off += nb
     else:
-        x = kernel_out.reshape(b, t, 64, SLOTS).permute(0, 3, 1, 2)
-        x = x.reshape(nseg_slots, t, 64)[:n_segments]
+        x = kernel_out.reshape(*lead, b, t, 64, SLOTS).movedim(-1, -3)
+        x = x.reshape(*lead, nseg_slots, t, 64)[..., :n_segments, :, :]
         # (nseg, R, bpm, 64) -> (nseg*R MCUs, bpm, 64), drop padding MCUs.
-        x = x.reshape(n_segments * mcus_per_segment, bpm, 64)[:n_mcus]
+        x = x.reshape(*lead, n_segments * mcus_per_segment, bpm, 64)[..., :n_mcus, :, :]
         off = 0
         for hs, vs in comp_geometry:
             nb = hs * vs
-            yc = x[:, off:off + nb, :].reshape(nvmb, nhmb, vs, hs, 64)
+            yc = x[..., off:off + nb, :].reshape(*lead, nvmb, nhmb, vs, hs, 64)
             off += nb
             if soa:
                 # Block (vs*i + pr, hs*k + pc) is MCU (i, k) sub-block (pr, pc).
-                out.append(yc.permute(2, 3, 4, 0, 1).contiguous())
+                out.append(yc.movedim((-5, -4), (-2, -1)).contiguous())
             else:
-                yc = yc.permute(0, 2, 1, 3, 4)              # (nvmb, vs, nhmb, hs, 64)
-                out.append(yc.reshape(nvmb * vs, nhmb * hs, 8, 8).contiguous())
+                yc = yc.transpose(-4, -3)                   # (nvmb, vs, nhmb, hs, 64)
+                out.append(yc.reshape(*lead, nvmb * vs, nhmb * hs, 8, 8).contiguous())
     if frame_order is not None:
         out = scan_to_frame_order(out, frame_order)
     return tuple(out)

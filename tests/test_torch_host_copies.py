@@ -4,29 +4,39 @@ The port cannot import ``jpeg_gpu_tpu.host`` (importing that package loads
 jax), so it carries copies.  They must parse and entropy-decode to the same
 headers and coefficients, build the same device plans and index-scan
 inputs, and the copied encoder must write the same bytes
-wherever the original terminates.  The copy also fixes the original
+wherever the original terminates.  The copies of the native build script,
+the libjpeg oracle (shim, ctypes layer) and the test oracles are the
+originals' code with the package's name in the imports.  The copy also fixes the original
 encoder's Huffman length-limit loop (Figure K.3 starts the search at
 i - 2), which never returns on images whose optimal code exceeds 16 bits.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
 
 from jpeg_gpu_tpu.host import entropy as r_entropy
 from jpeg_gpu_tpu.host import entropy_native as r_native
+from jpeg_gpu_tpu.host import oracle_native as r_oracle
 from jpeg_gpu_tpu.host import pack_plan as r_pack_plan
 from jpeg_gpu_tpu.host import segments as r_segments
 from jpeg_gpu_tpu.host import specsync as r_specsync
 from jpeg_gpu_tpu.host.parser import parse as r_parse
 from jpeg_gpu_tpu.testing import corpus as r_corpus
+from jpeg_gpu_tpu.testing import oracle as r_test_oracle
 from jpeg_gpu_tpu_torch.host import entropy as t_entropy
 from jpeg_gpu_tpu_torch.host import entropy_native as t_native
+from jpeg_gpu_tpu_torch.host import oracle_native as t_oracle
 from jpeg_gpu_tpu_torch.host import pack_plan as t_pack_plan
 from jpeg_gpu_tpu_torch.host import segments as t_segments
 from jpeg_gpu_tpu_torch.host import specsync as t_specsync
 from jpeg_gpu_tpu_torch.host.parser import parse as t_parse
 from jpeg_gpu_tpu_torch.testing import corpus as t_corpus
 from jpeg_gpu_tpu_torch.testing import encoder as t_encoder
+from jpeg_gpu_tpu_torch.testing import oracle as t_test_oracle
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
 
 MODES = ["4:4:4", "4:2:2", "4:2:0", "4:4:0", "4:1:1"]
 
@@ -203,3 +213,71 @@ def test_spec_index_scan_equal(mode):
     assert a.end_bit == end_bit
     np.testing.assert_array_equal(t_specsync.destuff(t_parse(data)),
                                   r_specsync.destuff(r_parse(data)))
+
+
+def _code(path: pathlib.Path) -> str:
+    """A source file without its leading comment or docstring, which may
+    say where the original's notes live."""
+    text = path.read_text()
+    if text.startswith('"""'):
+        return text.split('"""', 2)[2]
+    return text[text.index("#include"):]
+
+
+@pytest.mark.parametrize("rel", [
+    "host/native/build.py",
+    "host/native/jpeg_oracle.cpp",
+    "host/oracle_native.py",
+    "testing/oracle.py",
+])
+def test_copied_code_equals_original(rel):
+    """The code of these copies is the original's with the imports renamed,
+    but for the oracle's loader, which also treats a shim that does not load
+    as unavailable (test_oracle_shim_that_does_not_load_is_unavailable)."""
+    orig = _code(REPO / "jpeg_gpu_tpu" / rel)
+    copy = _code(REPO / "jpeg_gpu_tpu_torch" / rel)
+    if rel == "host/oracle_native.py":
+        orig, copy = (_without(x, "def _load", "def available") for x in (orig, copy))
+    assert copy == orig.replace("jpeg_gpu_tpu.", "jpeg_gpu_tpu_torch.")
+
+
+def _without(text: str, start: str, stop: str) -> str:
+    return text[: text.index(start)] + text[text.index(stop):]
+
+
+def test_oracle_shim_that_does_not_load_is_unavailable(monkeypatch):
+    """A shim that builds but whose libjpeg the loader cannot find (the
+    headers and a link-time library outside the loader's path) makes the
+    oracle unavailable instead of raising OSError; the original raises."""
+    import ctypes
+
+    def cannot_load(*args, **kwargs):
+        raise OSError("libjpeg.so.62: cannot open shared object file")
+
+    monkeypatch.setattr(t_oracle, "_lib", None)
+    monkeypatch.setattr(t_oracle, "_lib_failed", False)
+    monkeypatch.setattr(t_oracle.build, "oracle_object_path", lambda: pathlib.Path("shim.so"))
+    monkeypatch.setattr(ctypes, "CDLL", cannot_load)
+    assert not t_oracle.available()
+    assert t_oracle.libjpeg_probe(b"") == "oracle unavailable"
+
+
+@pytest.mark.parametrize("mode", ["mono", "4:2:0", "4:4:4"])
+def test_oracle_shims_equal(mode):
+    """Both packages' libjpeg shims give the same coefficients, tables,
+    planes and pixels."""
+    if not (t_oracle.available() and r_oracle.available()):
+        pytest.skip("system libjpeg shim unavailable")
+    img = _image(mode, 37, 45, seed=13)
+    data = r_corpus.pil_jpeg(img, quality=85) if mode == "mono" else r_corpus.pil_jpeg(
+        img, quality=85, subsampling=mode)
+    (tc, tq), (rc, rq) = t_oracle.libjpeg_coefficients(data), r_oracle.libjpeg_coefficients(data)
+    for a, b in zip(tc + tq + t_oracle.libjpeg_raw_yuv(data),
+                    rc + rq + r_oracle.libjpeg_raw_yuv(data)):
+        np.testing.assert_array_equal(a, b)
+    for fancy in (False, True):
+        np.testing.assert_array_equal(t_oracle.libjpeg_rgb(data, fancy),
+                                      r_oracle.libjpeg_rgb(data, fancy))
+    rgb = r_test_oracle.pil_decode_rgb(data)
+    np.testing.assert_array_equal(t_test_oracle.pil_decode_rgb(data), rgb)
+    assert t_test_oracle.psnr(rgb, rgb[::-1]) == r_test_oracle.psnr(rgb, rgb[::-1])

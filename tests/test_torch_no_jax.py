@@ -29,6 +29,35 @@ assert not leaked, leaked
 """
 
 
+BATCH_AND_CLI = """
+import sys
+import numpy as np
+from jpeg_gpu_tpu_torch.cli import main
+from jpeg_gpu_tpu_torch.engine.batch import decode_batch_device
+from jpeg_gpu_tpu_torch.testing import corpus
+datas = [corpus.own_jpeg(corpus.synthetic_rgb(16, 24, seed=s), "4:2:0", restart_interval=1).data
+         for s in (1, 2)]
+rgb = decode_batch_device(datas, device="cpu")
+assert [r.shape for r in rgb] == [(16, 24, 3)] * 2
+path = sys.argv[1]
+open(path, "wb").write(datas[0])
+assert main(["-b", "1", "--device", "cpu", path]) == 0
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jpeg_gpu_tpu.")))
+print("LEAKED", leaked)
+assert not leaked, leaked
+"""
+
+
+def test_batch_and_cli_import_no_jax(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", BATCH_AND_CLI, str(tmp_path / "t.jpg")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
 @pytest.mark.parametrize("upsample,entropy,extra", [
     ("nearest", "auto", {}), ("fancy", "python", {}), ("fancy", "device", {}),
     ("nearest", "auto", {"upload": "pack"}), ("fancy", "auto", {"exact": False}),
