@@ -134,6 +134,27 @@
    each); the card's busy share over five decodes, from torch.profiler's
    device-side events.
 
+9. The sharded paths (``jpeg_gpu_tpu_torch/parallel``) on meshes of one
+   card: ``make_mesh(devices=["cuda:0"] * 4, space=s)`` for s in 1, 2, 4 and
+   a (data=1, space=1) mesh (and all the cards, where there are several),
+   each call's launches counted after a warm-up call.  Held byte for byte to
+   the unsharded decode of the same input on cuda:0:
+   ``decode_batch_sharded`` on a 1080p 4:2:0 batch of 8, nearest, fancy (the
+   halo) and ``exact=False`` (K5 or K6 once a shard; the checksum equal to
+   its output's sum mod 2**32 and the same on every mesh);
+   ``decode_image_device_sharded`` on 1080p 4:2:0 R=1 (K2's row form once a
+   data shard, K1 once a space shard), 1080p without restart markers (K3
+   once, then the same), 4K 4:2:2 fancy without restart markers (K5 and the
+   halo; not at space 4, which its 270 MCU rows do not divide) and 512x512
+   grayscale; ``decode_batch_device(mesh=)`` on phase 7's corpus (K2 and its
+   table kernel, and K1, once a shard of the grid), and with image 5
+   corrupted, named; ``testing/multichip.dryrun_multichip`` at (data=2,
+   space=2) with BASELINE config 5's 8K 4:2:0 grid; and
+   ``decode_batch_distributed`` in a process group of one NCCL rank.  Host
+   clock of each sharded call beside its unsharded call, best of 3 run in
+   turns, at (data=2, space=2): the mesh code's overhead (the shards run in
+   turn on one card), not a scaling number.
+
 Images come from the package's own baseline encoder, seeded.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at once.
 The last three lines are the kernels' JSON, the card's name and power limit,
@@ -244,6 +265,167 @@ def bucket_split(datas, dev, reps: int, kernels):
         batch._raise_on_flags(err_img, bucket.indices)
         mark("D2H of the NI flags")
     return {k: v / reps for k, v in split.items()}, rgb, [mod.launches for mod in kernels]
+
+
+def sharded_paths(kernels, card, frames, corpus_datas, corpus_outs, bad_corpus):
+    """Phase 9: the sharded paths (jpeg_gpu_tpu_torch/parallel) on meshes of
+    one card, each output held byte for byte to the unsharded decode of the
+    same input on cuda:0, each call's launches of K1..K6 at their stated
+    values.  Returns the launches of the counted calls."""
+    from jpeg_gpu_tpu_torch.engine import batch, device_entropy, pipeline
+    from jpeg_gpu_tpu_torch.errors import JpegFormatError
+    from jpeg_gpu_tpu_torch.host import entropy_native
+    from jpeg_gpu_tpu_torch.host.parser import parse
+    from jpeg_gpu_tpu_torch.parallel import distributed, shard
+    from jpeg_gpu_tpu_torch.parallel.mesh import make_mesh
+    from jpeg_gpu_tpu_torch.testing import multichip
+
+    data1080, data1080r, data4k, data_gray = frames
+    dev = torch.device("cuda", 0)
+    meshes = {f"(data={4 // s}, space={s})": make_mesh(devices=[dev] * 4, space=s)
+              for s in (1, 2, 4)}
+    meshes["(data=1, space=1)"] = make_mesh(devices=[dev])
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} distinct cards"] = make_mesh()
+    total = [0] * len(kernels)
+
+    def counted(fn, warm=True):
+        """fn() with the launch counts set to 0 just before (after a warm-up
+        call that fills the table caches, unless ``warm`` is False)."""
+        if warm:
+            fn()
+        torch.cuda.synchronize()
+        for mod in kernels:
+            mod.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = [mod.launches for mod in kernels]
+        total[:] = [a + b for a, b in zip(total, counts)]
+        return out, counts
+
+    def launches(**k):
+        return [k.get(name, 0) for name in ("K1", "K2", "K3", "K4", "K5", "K6")]
+
+    def in_turns(sharded, unsharded, reps=3):
+        """Host-clock ms of each call, run in turns (unsharded, sharded,
+        sharded, unsharded, ...): (sharded runs, unsharded runs)."""
+        runs = ([], [])
+        for i in [1, 0, 0, 1, 1, 0, 0, 1][: 2 * reps]:
+            t0 = time.perf_counter()
+            (sharded, unsharded)[i]()
+            torch.cuda.synchronize()
+            runs[i].append((time.perf_counter() - t0) * 1e3)
+        return runs
+
+    # 1080p 4:2:0 coefficients from host entropy, a batch of 8 on the card.
+    parsed = parse(data1080)
+    hdr = parsed.header
+    coefs = tuple(torch.from_numpy(c).to(dev)[None].expand(8, *c.shape).contiguous()
+                  for c in entropy_native.decode_scan(parsed, soa=False).coefs)
+    qts = tuple(torch.from_numpy(hdr.quant_for(c).values.astype(np.int32)).to(dev)
+                for c in hdr.components)
+    h, w = hdr.height, hdr.width
+
+    def unsharded_batch(spec):
+        return pipeline.decode_rgb(spec, coefs, qts)
+
+    def image_unsharded(data, ups):
+        return device_entropy.decode_image_device(parse(data), upsample=ups,
+                                                  device=dev).cpu().numpy()
+
+    image_cases = [  # (name, data, upsample, K3 runs, pixel kernel)
+        ("1080p 4:2:0 R=1", data1080r, "nearest", False, "K1"),
+        ("1080p 4:2:0 without restart markers", data1080, "nearest", True, "K1"),
+        ("4K 4:2:2 fancy without restart markers", data4k, "fancy", True, "K5"),
+        ("512x512 gray", data_gray, "nearest", True, "K5"),
+    ]
+    image_want = {name: image_unsharded(data, ups) for name, data, ups, _, _ in image_cases}
+    times, checksums = {}, {}
+    for mesh_name, mesh in meshes.items():
+        d, s = mesh.shape["data"], mesh.shape["space"]
+        k3_devices = len({row[0] for row in mesh.devices})
+        timed = mesh_name == "(data=2, space=2)"
+        for ups, exact in (("nearest", True), ("fancy", True), ("fancy", False)):
+            spec = pipeline.PipelineSpec.from_header(hdr, exact=exact, upsample=ups)
+            (rgb, checksum), counts = counted(
+                lambda: shard.decode_batch_sharded(spec, mesh, coefs, qts))
+            assert torch.equal(rgb[:, :h, :w], unsharded_batch(spec)), (mesh_name, ups, exact)
+            # The checksum covers the MCU padding too, where the sharded fancy
+            # filter (clamp, then halo) differs from the unsharded one by design:
+            # it is held to its own output's sum and to every other mesh's.
+            assert int(checksum) == int(rgb.sum(dtype=torch.int64)) & 0xFFFFFFFF
+            assert checksums.setdefault((ups, exact), int(checksum)) == int(checksum)
+            assert counts == launches(**{"K5" if exact else "K6": d * s}), counts
+            print(f"sharded {mesh_name} decode_batch_sharded 1080p 4:2:0 batch 8 {ups} "
+                  f"exact={exact}: equal to the unsharded decode, checksum {int(checksum)} "
+                  f"(the sum of its 1088x1920 output, equal on every mesh); launches {counts}")
+            if timed and ups == "fancy" and exact:
+                times["decode_batch_sharded 1080p 4:2:0 fancy, batch 8"] = in_turns(
+                    lambda: shard.decode_batch_sharded(spec, mesh, coefs, qts),
+                    lambda: unsharded_batch(spec))
+        for name, data, ups, scans, pixel in image_cases:
+            if parse(data).header.nvmb % s:
+                continue   # 4K 4:2:2 has 270 MCU rows: space 4 does not divide them
+            got, counts = counted(lambda: device_entropy.decode_image_device_sharded(
+                parse(data), mesh, upsample=ups))
+            assert np.array_equal(got, image_want[name]), (mesh_name, name)
+            want = launches(K2=d, K3=k3_devices if scans else 0, **{pixel: s})
+            assert counts == want, (mesh_name, name, counts, want)
+            print(f"sharded {mesh_name} decode_image_device_sharded {name} {ups}: equal to "
+                  f"the unsharded entropy='device' decode; launches {counts}")
+            if timed:
+                if scans:   # the index scan's path, not the serial scan's fallback
+                    assert device_entropy._spec_decode_sharded_try(
+                        parse(data), mesh, True, ups, True) is not None, name
+                times[f"decode_image_device_sharded {name}"] = in_turns(
+                    lambda: device_entropy.decode_image_device_sharded(
+                        parse(data), mesh, upsample=ups),
+                    lambda: image_unsharded(data, ups))
+        outs, counts = counted(lambda: batch.decode_batch_device(corpus_datas, mesh=mesh),
+                               warm=False)
+        assert all(np.array_equal(a, b) for a, b in zip(outs, corpus_outs)), mesh_name
+        assert counts == launches(K1=d * s, K2=2 * d * s), (mesh_name, counts)
+        print(f"sharded {mesh_name} decode_batch_device, the corpus of {len(corpus_datas)} "
+              f"(config 4): every output equal to the unsharded decode; launches {counts}")
+        if timed:
+            times[f"decode_batch_device, corpus of {len(corpus_datas)}"] = in_turns(
+                lambda: batch.decode_batch_device(corpus_datas, mesh=mesh),
+                lambda: batch.decode_batch_device(corpus_datas, device=dev))
+    mesh = meshes["(data=2, space=2)"]
+    try:
+        batch.decode_batch_device(bad_corpus, mesh=mesh)
+    except JpegFormatError as e:
+        assert "image 5 " in str(e), e
+        print(f"sharded (data=2, space=2) corpus with image 5 corrupted: {e}")
+    else:
+        raise AssertionError("the corrupted image was not flagged on the mesh")
+    summary = multichip.dryrun_multichip(4, devices=[dev] * 4)
+    assert summary["mesh"] == (2, 2) and summary["frame_8k"] == (2, 4320, 7680, 3), summary
+    print(f"dryrun_multichip on (data=2, space=2) of one card, all four checks equal to the "
+          f"unsharded decode: {summary}")
+    # The NCCL path at world size 1 (one card cannot hold two NCCL ranks).
+    assert torch.distributed.is_nccl_available(), "this torch has no NCCL"
+    with tempfile.TemporaryDirectory() as tmp:
+        assert distributed.initialize_from_env(init_method=f"file://{tmp}/rdzv", world_size=1,
+                                               rank=0, device=dev, timeout=60)
+        try:
+            backend = torch.distributed.get_backend()
+            (rgbs, checksum), counts = counted(lambda: distributed.decode_batch_distributed(
+                corpus_datas[:8], space=2, device=dev, return_checksum=True), warm=False)
+        finally:
+            torch.distributed.destroy_process_group()
+    assert backend == "nccl" and counts == launches(K5=2), (backend, counts)
+    assert all(np.array_equal(a, b) for a, b in zip(rgbs, corpus_outs[:8]))
+    assert checksum == int(sum(int(r.astype(np.uint64).sum()) for r in rgbs)) & 0xFFFFFFFF
+    print(f"decode_batch_distributed, world size 1, backend {backend}, space 2: 8 corpus "
+          f"images equal to the unsharded decode, global checksum {checksum}; launches {counts}")
+    print(f"sharded against unsharded, host clock ms, best of 3 run in turns, one H100, "
+          f"shards run in turn on (data=2, space=2) of one card: the mesh code's overhead, "
+          f"not a scaling number  [{card}]:")
+    for name, (runs, runs_plain) in times.items():
+        print(f"  {name}: sharded {min(runs)} ms (runs {runs}), unsharded {min(runs_plain)} "
+              f"ms (runs {runs_plain}), ratio {min(runs) / min(runs_plain)}")
+    return total
 
 
 def card_line() -> str:
@@ -1892,6 +2074,14 @@ def main() -> int:
     busy_share(data1080, card)
 
     phase_done(8)
+    # -- 9. the sharded paths on meshes of one card -------------------------
+    sharded_launches = sharded_paths(
+        kernels, card, (data1080, data1080r, data4k, data_gray), corpus_datas, corpus_outs,
+        bad_corpus)
+    main_launches = [a + b for a, b in zip(main_launches, sharded_launches)]
+    print(f"sharded paths: launches {sharded_launches} (K1..K6)")
+
+    phase_done(9)
     def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None, **more):
         return {
             "name": stem,

@@ -18,8 +18,12 @@ bucket decodes as one batched call on ``device``:
 Quantization tables may differ per image inside a bucket: they travel as a
 batched (N, 64) tensor to K1, or (N, 1, 1, 8, 8) to K5/K6, one row per
 image.  ``device=None`` means the card; the CPU, with each kernel's plain
-version, runs only for ``device="cpu"``.  Sharding a bucket over several
-devices (the reference's ``mesh``) is not ported yet.
+version, runs only for ``device="cpu"``.
+
+With ``mesh`` (a (data, space) grid of devices, ``parallel/mesh.make_mesh``)
+:func:`decode_batch` and :func:`decode_batch_device` shard each bucket:
+images over ``data`` (over the whole grid for the Huffman decode), MCU block
+rows over ``space`` (``parallel/shard.py``).
 """
 
 from __future__ import annotations
@@ -38,15 +42,25 @@ from jpeg_gpu_tpu_torch.host.parser import ParsedJpeg, parse
 from jpeg_gpu_tpu_torch.host.segments import build_corpus_plan, build_plan, plan_bucket_key
 from jpeg_gpu_tpu_torch.ops import entropy_device, pixel_fused
 from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
+from jpeg_gpu_tpu_torch.parallel import shard
+from jpeg_gpu_tpu_torch.parallel.mesh import DATA_AXIS, Mesh, as_device
 from jpeg_gpu_tpu_torch.utils.device import resolve_device
+from jpeg_gpu_tpu_torch.utils.logging import get_logger
+
+log = get_logger("engine")
 
 
-def _no_mesh(mesh, who: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{who}: sharding a bucket over a device mesh is not ported yet "
-            "(ROADMAP Queue 1, parallel/); pass mesh=None"
-        )
+def _mesh_device(mesh, device, who: str) -> torch.device:
+    """The device a call runs on: the mesh's first device (where the
+    inputs go up and the results are gathered) or ``device``."""
+    if mesh is None:
+        return resolve_device(device, who)
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"{who}: mesh must be a jpeg_gpu_tpu_torch.parallel.mesh.Mesh, "
+                        f"got {type(mesh).__name__}")
+    if device is not None and as_device(device) != mesh.first_device:
+        raise ValueError(f"{who}: device={device} is not the mesh's first device")
+    return mesh.first_device
 
 
 def _bucket_key(spec: PipelineSpec) -> Tuple:
@@ -124,20 +138,24 @@ def decode_batch(
 ) -> List[np.ndarray]:
     """Decode a corpus of JPEGs to RGB, batching same-geometry images.
 
-    Each bucket runs as one batched call on ``device``.
-    ``entropy="device"`` runs the Huffman decode on the device too
-    (:func:`decode_batch_device`).  ``mesh`` must be None: the sharded
-    decode is not ported yet.  Returns RGB arrays in input order.
+    Each bucket runs as one batched call on ``device``, or with ``mesh``
+    sharded over its grid (``parallel/shard.decode_batch_sharded``: images
+    over data, the bucket padded to the data axis with its last image, block
+    rows over space).  ``entropy="device"`` runs the Huffman decode on the
+    device too (:func:`decode_batch_device`).  Returns RGB arrays in input
+    order.
     """
-    _no_mesh(mesh, "decode_batch")
     if entropy == "device":
-        return decode_batch_device(datas, exact=exact, upsample=upsample, device=device)
-    device = resolve_device(device, "decode_batch")
+        return decode_batch_device(
+            datas, exact=exact, upsample=upsample, mesh=mesh, device=device)
+    device = _mesh_device(mesh, device, "decode_batch")
     buckets: Dict[Tuple, _Bucket] = {}
     for i, data in enumerate(datas):
         parsed = parse(data)
         spec = PipelineSpec.from_header(parsed.header, exact=exact, upsample=upsample)
-        result = _entropy_decode(parsed, soa=pipeline.fused_rgb_geometry(spec) is not None)
+        # The sharded pixel stage takes blocks; K1 takes SoA planes.
+        soa = mesh is None and pipeline.fused_rgb_geometry(spec) is not None
+        result = _entropy_decode(parsed, soa=soa)
         b = buckets.setdefault(_bucket_key(spec), _Bucket(spec))
         b.indices.append(i)
         b.coefs.append(result.coefs)
@@ -148,12 +166,33 @@ def decode_batch(
         # The bucket's coefficients on an image axis, and a table row per image.
         ncomps = bucket.spec.ncomps
         arrays = [np.stack([c[ci] for c in bucket.coefs]) for ci in range(ncomps)]
-        comps = tuple(torch.from_numpy(a).to(device) for a in arrays)
-        qtables = torch.from_numpy(_qtables(bucket.parsed)).to(device)
-        rgb = _numpy(_pixels(bucket.spec, comps, qtables))
+        qtables = _qtables(bucket.parsed)
+        if mesh is None:
+            comps = tuple(torch.from_numpy(a).to(device) for a in arrays)
+            rgb = _numpy(_pixels(bucket.spec, comps, torch.from_numpy(qtables).to(device)))
+        else:
+            rgb = _decode_bucket_sharded(bucket.spec, arrays, qtables, mesh)
         for j, i in enumerate(bucket.indices):
             out[i] = rgb[j]
     return out  # type: ignore[return-value]
+
+
+def _decode_bucket_sharded(spec: PipelineSpec, arrays, qtables: np.ndarray, mesh) -> np.ndarray:
+    """A host-entropy bucket over the mesh: ``arrays`` are the components'
+    (N, vb, hb, 8, 8) blocks, ``qtables`` (N, ncomps, 64).  Returns the
+    cropped (N, H, W, 3) RGB.  ValueError where the space axis does not
+    divide a component's block rows."""
+    n = qtables.shape[0]
+    pad = (-n) % mesh.shape[DATA_AXIS]
+    # The batch must tile the data axis: repeat the last image, then crop.
+    arrays = [np.concatenate([a, np.repeat(a[-1:], pad, axis=0)]) for a in arrays]
+    qtables = np.concatenate([qtables, np.repeat(qtables[-1:], pad, axis=0)])
+    first = mesh.first_device
+    comps = tuple(torch.from_numpy(a).to(first) for a in arrays)
+    q = torch.from_numpy(qtables).to(first)
+    qts = tuple(q[:, ci].reshape(n + pad, 1, 1, 8, 8) for ci in range(spec.ncomps))
+    rgb, _ = shard.decode_batch_sharded(spec, mesh, comps, qts)
+    return _numpy(rgb[:n, : spec.height, : spec.width])
 
 
 def _device_buckets(datas, exact, upsample):
@@ -222,6 +261,50 @@ def _decode_bucket_device(
     return rgb, err_img
 
 
+def _decode_bucket_device_sharded(bucket: _Bucket, on_error: str, mesh):
+    """One bucket over the mesh (``parallel/shard.decode_corpus_device_sharded``):
+    the inputs up to the mesh's first device in one copy, K2 once on each
+    shard of the grid over its images, K1 (or K5 / K6) on each shard's block
+    rows.  The image count is padded to a multiple of the grid with the last
+    image, whose extra outputs are dropped.  Returns (rgb (NI, H, W, 3)
+    uint8, flagged (2, NI) int32) on the first device: per image its largest
+    segment flag and its first flagged segment."""
+    n = len(bucket.indices)
+    n_chips = mesh.size
+    pad = (-n) % n_chips
+    if pad:
+        # Padding is wasted Huffman work: size buckets to the grid.
+        (log.warning if pad > n else log.debug)(
+            "mesh bucket pads %d image(s) to %d shards (%.0f%% of the entropy "
+            "stage is padding)", n, n + pad, 100.0 * pad / (n + pad))
+    plans = bucket.plans + [bucket.plans[-1]] * pad
+    parsed = bucket.parsed + [bucket.parsed[-1]] * pad
+    hdr = parsed[0].header
+    spec = bucket.spec
+    cp = build_corpus_plan(plans)
+    ni, b1 = cp.n_images, cp.batches_per_image
+    # Shard-local last-segment meta: every image of the bucket has the same.
+    lb0, lane0, steps0 = (int(x) for x in plans[0].seg_meta)
+    local_seg_meta = np.array(
+        [[j * b1 + lb0, lane0, steps0] for j in range(ni // n_chips)], dtype=np.int32)
+    streams, cm, dm, am, lsm, cbase, counts, symbols, qtables = plan_tensors(
+        (cp.streams, cp.comp_of_step, cp.dc_slot_of_step, cp.ac_slot_of_step,
+         local_seg_meta, cp.cbase, cp.counts, cp.symbols, _qtables(parsed)),
+        mesh.first_device)
+    geom = tuple((hdr.components[ci].hsamp, hdr.components[ci].vsamp)
+                 for ci in hdr.scan.comp_idx)
+    rgb, err = shard.decode_corpus_device_sharded(
+        spec, mesh,
+        (b1, cp.n_segments, cp.mcus_per_segment, cp.n_mcus, hdr.nhmb, hdr.nvmb, geom,
+         hdr.scan.comp_idx, on_error == "zero"),
+        streams, (cm, dm, am), lsm, (cbase, counts, symbols),
+        tuple(qtables[:, ci] for ci in range(spec.ncomps)),
+    )
+    flags = err.reshape(ni, -1)[:n, : cp.n_segments]
+    flagged = torch.stack([flags.amax(1), (flags != 0).to(torch.int32).argmax(1).to(torch.int32)])
+    return rgb[:n, : spec.height, : spec.width], flagged
+
+
 def _raise_on_flags(err_img: torch.Tensor, indices: Sequence[int]) -> None:
     flags = err_img.cpu().numpy()   # NI ints, not NI x 1024 lane flags
     if flags.any():
@@ -257,18 +340,30 @@ def decode_batch_device(
     the first image with a flagged segment; ``"zero"`` decodes flagged
     segments as flat gray blocks.  Images the device planner rejects (a
     stream without restart markers too large for one segment) fall back
-    to the host-entropy :func:`decode_batch`.  ``mesh`` must be None.
-    Returns RGB arrays in input order.
+    to the host-entropy :func:`decode_batch` (unsharded, on the mesh's
+    first device).  With ``mesh`` each bucket shards over its grid
+    (:func:`_decode_bucket_device_sharded`), and a flag names the image and
+    its first flagged restart segment.  Returns RGB arrays in input order.
     """
-    _no_mesh(mesh, "decode_batch_device")
     _check_on_error(on_error)
-    device = resolve_device(device, "decode_batch_device")
+    device = _mesh_device(mesh, device, "decode_batch_device")
     out: List[Optional[np.ndarray]] = [None] * len(datas)
     buckets, fallback = _device_buckets(datas, exact, upsample)
     for bucket in buckets:
-        rgb, err_img = _decode_bucket_device(bucket, on_error, device)
-        if check_errors and on_error == "raise":
-            _raise_on_flags(err_img, bucket.indices)
+        if mesh is None:
+            rgb, err_img = _decode_bucket_device(bucket, on_error, device)
+            if check_errors and on_error == "raise":
+                _raise_on_flags(err_img, bucket.indices)
+        else:
+            rgb, flagged = _decode_bucket_device_sharded(bucket, on_error, mesh)
+            if check_errors and on_error == "raise":
+                flags, first_seg = flagged.cpu().numpy()   # one copy a bucket
+                if flags.any():
+                    bad = int(np.flatnonzero(flags)[0])
+                    raise JpegFormatError(
+                        f"device entropy decode failed: image {bucket.indices[bad]} "
+                        f"restart segment {int(first_seg[bad])} (flags={int(flags[bad])})"
+                    )
         rgb = _numpy(rgb)
         for j, i in enumerate(bucket.indices):
             out[i] = rgb[j]

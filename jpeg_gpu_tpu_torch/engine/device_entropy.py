@@ -9,7 +9,8 @@ the symbol tables K2 and K3 build from them stay on the card
 (:func:`device_tables`), so a frame uploads its bits and a few small maps in
 one copy.  For the PACK upload the
 host does the Huffman work and the device expands the packed (run, value)
-stream (K4, :func:`expand_pack_device`).
+stream (K4, :func:`expand_pack_device`).  :func:`decode_image_device_sharded`
+decodes one image over a (data, space) mesh (``parallel/shard.py``).
 """
 
 from __future__ import annotations
@@ -137,6 +138,23 @@ def _spec_decode_try(parsed: ParsedJpeg, device):
     return out, err, stats
 
 
+def _scan_geometry(header) -> Tuple[Tuple[int, int], ...]:
+    """(hsamp, vsamp) of each scan component, in scan order."""
+    return tuple(
+        (header.components[i].hsamp, header.components[i].vsamp)
+        for i in header.scan.comp_idx
+    )
+
+
+def _raise_on_segment_flags(err: torch.Tensor, n_segments: int, kind: str) -> None:
+    flags = err.reshape(-1)[:n_segments].cpu().numpy()
+    if flags.any():
+        bad = int(np.flatnonzero(flags)[0])
+        raise JpegFormatError(
+            f"device entropy decode failed in {kind} {bad} (flags={int(flags[bad])})"
+        )
+
+
 def entropy_decode_device(
     parsed: ParsedJpeg,
     device=None,
@@ -167,10 +185,6 @@ def entropy_decode_device(
         raise ValueError(f"on_error must be 'raise' or 'zero', got {on_error!r}")
     device = resolve_device(device, "entropy_decode_device")
     header = parsed.header
-    comp_geometry = tuple(
-        (header.components[i].hsamp, header.components[i].vsamp)
-        for i in header.scan.comp_idx
-    )
     spec_result = None
     if (
         specsync
@@ -212,21 +226,15 @@ def entropy_decode_device(
         n_mcus=header.n_mcus,
         nhmb=header.nhmb,
         nvmb=header.nvmb,
-        comp_geometry=comp_geometry,
+        comp_geometry=_scan_geometry(header),
         soa=soa,
         frame_order=header.scan.comp_idx,
     )
     if check_errors and on_error == "raise":
         # Flags are exact for every segment (K2 suppresses the spurious
         # flags of a short last segment's padded tail).
-        flags = err.reshape(-1)[:plan_nseg].cpu().numpy()
-        if flags.any():
-            bad = int(np.flatnonzero(flags)[0])
-            kind = "pseudo segment" if spec_stats is not None else "restart segment"
-            raise JpegFormatError(
-                f"device entropy decode failed in {kind} {bad} "
-                f"(flags={int(flags[bad])})"
-            )
+        _raise_on_segment_flags(
+            err, plan_nseg, "pseudo segment" if spec_stats is not None else "restart segment")
     return DeviceEntropyResult(coefs=coefs, err=err, specsync_stats=spec_stats)
 
 
@@ -248,10 +256,6 @@ def expand_pack_device(parsed: ParsedJpeg, scan, device=None) -> Tuple[torch.Ten
     plan = build_pack_plan(parsed, scan)
     streams, = plan_tensors((plan.streams,), device)
     kernel_out = pack_device.expand_pack_device(streams, plan.blocks_per_segment)
-    comp_geometry = tuple(
-        (header.components[i].hsamp, header.components[i].vsamp)
-        for i in header.scan.comp_idx
-    )
     return entropy_device.assemble_components(
         kernel_out,
         n_segments=plan.n_segments,
@@ -259,10 +263,118 @@ def expand_pack_device(parsed: ParsedJpeg, scan, device=None) -> Tuple[torch.Ten
         n_mcus=header.n_mcus,
         nhmb=header.nhmb,
         nvmb=header.nvmb,
-        comp_geometry=comp_geometry,
+        comp_geometry=_scan_geometry(header),
         soa=False,
         frame_order=header.scan.comp_idx,
     )
+
+
+def _spec_decode_sharded_try(parsed: ParsedJpeg, mesh, exact, upsample, check_errors):
+    """Sharded decode of a stream without restart markers through the device
+    index scan (``parallel/shard.decode_image_device_sharded_spec``).
+
+    Returns the cropped RGB array, or None when the scan did not converge
+    or the stream is out of its range: the caller then takes the serial
+    host scan."""
+    from jpeg_gpu_tpu_torch.engine import pipeline
+    from jpeg_gpu_tpu_torch.parallel import shard
+
+    header = parsed.header
+    try:
+        inp = build_spec_scan_input(parsed, sb_target=SCAN_SB_TARGET)
+    except JpegUnsupportedError:
+        return None
+    spec = pipeline.PipelineSpec.from_header(header, exact=exact, upsample=upsample)
+    first = mesh.first_device
+    tabs = device_tables(inp.cbase, inp.counts, inp.symbols, first, scan=True)
+    windows, dcslot_c, acslot_c, comp_map, dcslot, acslot, seg_meta = plan_tensors(
+        (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
+         inp.dc_slot_of_step, inp.ac_slot_of_step, inp.seg_meta), first)
+    qts = plan_tensors([header.quant_for(c).values for c in header.components], first)
+    rgb, err, ok = shard.decode_image_device_sharded_spec(
+        spec, mesh,
+        (header.n_mcus, 1, header.n_mcus, header.nhmb, header.nvmb,
+         _scan_geometry(header), header.scan.comp_idx),
+        (inp.subseq_bytes, inp.maxrec, inp.nw, inp.spw, inp.nws, inp.t_last),
+        windows, inp.n_bits, (dcslot_c, acslot_c),
+        (comp_map, dcslot, acslot, seg_meta, tabs.cbase, tabs.counts, tabs.symbols),
+        qts, luts=(tabs.k2_lut, tabs.k3_lut),
+    )
+    if not bool(ok):
+        log.debug("sharded device index scan did not converge; falling back")
+        return None
+    if check_errors:
+        _raise_on_segment_flags(err, header.n_mcus, "pseudo segment")
+    return rgb[: header.height, : header.width].cpu().numpy()
+
+
+def decode_image_device_sharded(
+    parsed: ParsedJpeg,
+    mesh,
+    exact: bool = True,
+    upsample: str = "nearest",
+    check_errors: bool = True,
+    specsync: Optional[bool] = None,
+) -> np.ndarray:
+    """One image decoded on the device, sharded over ``mesh``
+    (``parallel/mesh.make_mesh``): restart-segment batches shard over the
+    data axis (K2 on each data shard), the coefficients are gathered, and
+    the pixel stage splits MCU rows over the space axis
+    (``parallel/shard.decode_image_device_sharded``).  The inputs go up to
+    the mesh's first device in one copy, and the result is gathered there.
+    Returns the cropped RGB array.
+
+    Streams without restart markers take the device index scan (K3) on the
+    mesh unless ``specsync`` is False (None means True); if the scan cannot
+    be used, the serial host scan's pseudo segments shard the same way.
+    A flagged segment raises JpegFormatError naming it.
+    """
+    from jpeg_gpu_tpu_torch.engine import pipeline
+    from jpeg_gpu_tpu_torch.parallel import shard
+    from jpeg_gpu_tpu_torch.parallel.mesh import DATA_AXIS
+
+    header = parsed.header
+    if specsync is None:
+        specsync = True
+    if (
+        specsync
+        and not header.restart_interval
+        and len(parsed.segments) == 1
+        and header.n_mcus >= 2
+    ):
+        rgb = _spec_decode_sharded_try(parsed, mesh, exact, upsample, check_errors)
+        if rgb is not None:
+            return rgb
+    plan = build_plan_auto(parsed)
+    streams = plan.streams
+    pad = (-streams.shape[0]) % mesh.shape[DATA_AXIS]
+    if pad:   # filler batches decode 1-padding: flagged, and ignored
+        streams = np.concatenate(
+            [streams, np.full((pad,) + streams.shape[1:], -1, dtype=streams.dtype)])
+    arrays = [streams, *plan.kernel_tables[:4]]
+    if plan.dc_base is not None:
+        # Pseudo segments of the serial scan: their DC bases shard with the
+        # streams.
+        dcb = np.zeros((streams.shape[0] * entropy_device.SLOTS, plan.dc_base.shape[1]),
+                       dtype=np.int32)
+        dcb[: plan.n_segments] = plan.dc_base
+        arrays.append(dcb.reshape(streams.shape[0], entropy_device.SUBLANES,
+                                  entropy_device.LANES, -1))
+    first = mesh.first_device
+    tensors = plan_tensors(arrays, first)
+    tabs = device_tables(plan.cbase, plan.counts, plan.symbols, first, scan=False)
+    qts = plan_tensors([header.quant_for(c).values for c in header.components], first)
+    spec = pipeline.PipelineSpec.from_header(header, exact=exact, upsample=upsample)
+    rgb, err = shard.decode_image_device_sharded(
+        spec, mesh,
+        (plan.n_segments, plan.mcus_per_segment, header.n_mcus, header.nhmb,
+         header.nvmb, _scan_geometry(header), header.scan.comp_idx),
+        tensors[0], (*tensors[1:5], tabs.cbase, tabs.counts, tabs.symbols), qts,
+        dc_base=tensors[5] if plan.dc_base is not None else None, lut=tabs.k2_lut,
+    )
+    if check_errors:
+        _raise_on_segment_flags(err, plan.n_segments, "restart segment")
+    return rgb[: header.height, : header.width].cpu().numpy()
 
 
 def decode_image_device(

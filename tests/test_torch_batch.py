@@ -4,8 +4,9 @@ The port's ``decode_batch``, ``decode_batch_device`` and
 ``decode_batch_device_resident`` (``device="cpu"``: every kernel runs its
 plain version) are held to the JAX package's functions on the same bytes:
 tolerance 0 on the exact buckets, 2 on RGB for ``exact=False`` (the two
-packages sum the float IDCT in different orders).  The reference's mesh
-tests have no counterpart: a mesh raises NotImplementedError in the port.
+packages sum the float IDCT in different orders).  The sharded forms
+(``mesh=``) are held to the reference in ``test_torch_parallel.py`` and
+``test_torch_sharded_device_entropy.py``.
 """
 
 import numpy as np
@@ -230,10 +231,16 @@ def test_decode_batch_device_flags_corrupt_image():
 
 
 def test_mesh_raises_not_implemented():
+    """The sharded forms exist now: a port Mesh decodes as the unsharded
+    call does, and anything else (a JAX mesh, say) is refused by type."""
+    from jpeg_gpu_tpu_torch.parallel.mesh import make_mesh
+
     datas = _corpus()[:1]
     for fn in (tbatch.decode_batch, tbatch.decode_batch_device):
-        with pytest.raises(NotImplementedError, match="parallel/"):
-            fn(datas, mesh=object(), device="cpu")
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            fn(datas, mesh=object())
+        got = fn(datas, mesh=make_mesh(devices=["cpu"] * 2))
+        _assert_equal(got, fn(datas, device="cpu"))
 
 
 def test_on_error_is_checked():

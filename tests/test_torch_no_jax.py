@@ -58,6 +58,37 @@ def test_batch_and_cli_import_no_jax(tmp_path):
     assert "LEAKED []" in proc.stdout
 
 
+SHARDED = """
+import sys
+import numpy as np
+from jpeg_gpu_tpu_torch.engine.batch import decode_batch
+from jpeg_gpu_tpu_torch.engine.device_entropy import decode_image_device_sharded
+from jpeg_gpu_tpu_torch.host.parser import parse
+from jpeg_gpu_tpu_torch.parallel import distributed, mesh, shard
+from jpeg_gpu_tpu_torch.testing import corpus, multichip
+m = mesh.make_mesh(devices=["cpu"] * 4, space=2)
+datas = [corpus.own_jpeg(corpus.synthetic_rgb(32, 32, seed=s), "4:2:0", restart_interval=1).data
+         for s in (1, 2, 3)]
+assert [r.shape for r in decode_batch(datas, mesh=m)] == [(32, 32, 3)] * 3
+assert [r.shape for r in decode_batch(datas, mesh=m, entropy="device")] == [(32, 32, 3)] * 3
+assert decode_image_device_sharded(parse(datas[0]), m).shape == (32, 32, 3)
+assert len(distributed.decode_batch_distributed(datas, device="cpu")) == 3
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jpeg_gpu_tpu.")))
+print("LEAKED", leaked)
+assert not leaked, leaked
+"""
+
+
+def test_parallel_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", SHARDED], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
 @pytest.mark.parametrize("upsample,entropy,extra", [
     ("nearest", "auto", {}), ("fancy", "python", {}), ("fancy", "device", {}),
     ("nearest", "auto", {"upload": "pack"}), ("fancy", "auto", {"exact": False}),
