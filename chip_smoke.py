@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port (jpeg_gpu_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--out DIR]
 
 1. Environment: CUDA and nvcc versions, the card, and the build times and
    ptxas lines of the six kernels -- K1 (csrc/pixel_fused.cu), K2
@@ -154,6 +154,19 @@
    clock of each sharded call beside its unsharded call, best of 3 run in
    turns, at (data=2, space=2): the mesh code's overhead (the shards run in
    turn on one card), not a scaling number.
+10. The differential sweep (``testing/sweep.run("cuda")``): the 20 committed
+   inputs of SWEEP_r05.json, each decoded on the card with host entropy and
+   with ``entropy="device"``, equal to the host pipeline, to the TPU run's
+   RGB checksum, to libjpeg's committed checksum where the reference checks
+   libjpeg and to the machine's libjpeg where it serves RGB; then the
+   device-scan artifact (``testing/specsync_artifact.run("cuda")``): K3's
+   bit offsets on the six committed scan inputs equal to the native serial
+   scan's, their ``entropy="device"`` decodes equal to the host's, a forced
+   record overflow decoded through the serial scan, and the 1080p frame's
+   scan time from torch.profiler beside the host window build and the serial
+   scan.  Both artifacts go to ``--out`` (default ``chiprun_out/``) as
+   SWEEP_torch.json and SPECSYNC_DEVICE_torch.json, and their checks'
+   launches add to the kernels line.
 
 Images come from the package's own baseline encoder, seeded.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at once.
@@ -428,12 +441,48 @@ def sharded_paths(kernels, card, frames, corpus_datas, corpus_outs, bad_corpus):
     return total
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout
-    return out.strip().splitlines()[0]
+def artifacts(kernels, data1080: bytes, out_dir: str):
+    """Phase 10: the differential sweep over the 20 committed SWEEP_r05 files
+    and the device-scan artifact on the six committed scan inputs, both on
+    the card, written as JSON into ``out_dir``.  Returns their launches."""
+    import pathlib
+
+    from jpeg_gpu_tpu_torch.testing import specsync_artifact, sweep
+
+    out = pathlib.Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+
+    def counted(fn, name):
+        """fn()'s artifact, written to out/name, with the launches it counts
+        and those seen, the launch counts set to 0 just before."""
+        torch.cuda.synchronize()
+        for mod in kernels:
+            mod.launches = 0
+        art = fn()
+        (out / name).write_text(json.dumps(art, indent=1) + "\n")
+        return art, list(art["launches"].values()), [mod.launches for mod in kernels]
+
+    art, sweep_counts, seen = counted(lambda: sweep.run("cuda"), "SWEEP_torch.json")
+    assert (art["passed"], art["failed"]) == (20, 0), [c for c in art["configs"] if not c["ok"]]
+    assert sweep_counts == seen, (sweep_counts, seen)
+    live = sum(c.get("eq_libjpeg_live") is not None for c in art["configs"])
+    print(f"sweep: {art['passed']}/{art['n']} OK on the card (cuda_eq_host, device_entropy_eq, "
+          f"rgb_sha_eq_r05 everywhere; eq_libjpeg on "
+          f"{sum('eq_libjpeg' in c for c in art['configs'])}, libjpeg live on {live}), "
+          f"{art['wall_s']} s, launches {art['launches']} -> {out / 'SWEEP_torch.json'}")
+    art, scan_counts, seen = counted(
+        lambda: specsync_artifact.run("cuda", serving_frame=data1080),
+        "SPECSYNC_DEVICE_torch.json")
+    # The timing of serving_1080p launches K3 beyond the checks' count.
+    assert all(a <= b for a, b in zip(scan_counts, seen)), (scan_counts, seen)
+    assert art["all_ok"] and art["fallback_serial_scan_ok"], art
+    assert art["n_configs"] == 6 and all(c["plan_bit_identical"] for c in art["configs"])
+    print(f"specsync artifact: {art['n_configs']}/6 bit-identical to the serial scan and decoded "
+          f"equal through it, fallback ok; serving_1080p {json.dumps(art['serving_1080p'])}; "
+          f"launches {art['launches']} -> {out / 'SPECSYNC_DEVICE_torch.json'}")
+    total = [a + b for a, b in zip(sweep_counts, scan_counts)]
+    print(f"phase 10: launches {total} (K1..K6)")
+    return total
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -446,27 +495,6 @@ def cuda_ms(fn, iters: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
-
-
-def device_ms(fn, iters: int) -> dict:
-    """Mean device time of each kernel fn() launches, by name, from
-    torch.profiler's device-side events: what the card spends, without the
-    wrapper's time on the host, which the back-to-back launches of cuda_ms
-    include whenever the host is the slower of the two."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):   # a window the profiler saw no device event in is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        times = {e.key[:72]: e.self_device_time_total / 1e3 / iters
-                 for e in prof.key_averages() if e.self_device_time_total > 0}
-        if times:
-            return times
-    raise RuntimeError("torch.profiler recorded no device time")
 
 
 def nbytes(*tensors) -> int:
@@ -529,6 +557,8 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default="chiprun_out",
+                    help="directory for SWEEP_torch.json and SPECSYNC_DEVICE_torch.json")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -550,6 +580,8 @@ def main() -> int:
     from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
     from jpeg_gpu_tpu_torch.testing import corpus, pack_cases, scan_cases
     from jpeg_gpu_tpu_torch.testing.encoder import _M as DCT_BASIS_F64
+    from jpeg_gpu_tpu_torch.testing.specsync_artifact import device_ms
+    from jpeg_gpu_tpu_torch.testing.sweep import card_line
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -2082,6 +2114,11 @@ def main() -> int:
     print(f"sharded paths: launches {sharded_launches} (K1..K6)")
 
     phase_done(9)
+    # -- 10. the differential sweep and the device-scan artifact -------------
+    artifact_launches = artifacts(kernels, data1080, args.out)
+    main_launches = [a + b for a, b in zip(main_launches, artifact_launches)]
+
+    phase_done(10)
     def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None, **more):
         return {
             "name": stem,

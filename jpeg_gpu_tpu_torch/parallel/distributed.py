@@ -13,7 +13,9 @@ drives each card:
   (``all_gather_object``) and the global checksum (``all_reduce``).
 
 Without an initialized process group everything degrades to one process
-that owns the whole corpus.  With a card the group uses NCCL, else gloo.
+that owns the whole corpus.  The group uses NCCL on the cards, and gloo
+only for a caller that passes ``device="cpu"``: without a card and without
+that, the entry points raise.
 One card cannot host two NCCL ranks, so the NCCL path is checked on the
 card at world size 1 only; across processes it is checked with gloo on the
 CPU (``tests/test_torch_distributed.py``).
@@ -30,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 from jpeg_gpu_tpu_torch.parallel.mesh import as_device, make_mesh
+from jpeg_gpu_tpu_torch.utils.device import resolve_device
 from jpeg_gpu_tpu_torch.utils.logging import get_logger
 
 log = get_logger("parallel")
@@ -45,11 +48,10 @@ def _rank_world() -> tuple:
     return (dist.get_rank(), dist.get_world_size()) if _grouped() else (0, 1)
 
 
-def default_device():
-    """This rank's card, ``cuda:{LOCAL_RANK}``, or the CPU without one."""
-    if torch.cuda.is_available():
-        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
-    return torch.device("cpu")
+def default_device() -> torch.device:
+    """This rank's card, ``cuda:{LOCAL_RANK}``; raises without one (the CPU
+    runs only for a caller that passes ``device="cpu"``)."""
+    return resolve_device(f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}", "distributed")
 
 
 def initialize_from_env(
@@ -65,9 +67,9 @@ def initialize_from_env(
     MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK; ``init_method`` then is
     ``env://``).  Returns False, and does nothing, when neither arguments
     nor variables configure a group (a single-process run); True once a
-    group is up.  The backend is NCCL when ``device`` (default
-    :func:`default_device`) is a card, gloo otherwise.  ``timeout`` (seconds)
-    bounds each collective.
+    group is up.  ``device`` defaults to :func:`default_device`, this rank's
+    card, and raises without one; the backend is NCCL on a card and gloo for
+    ``device="cpu"``.  ``timeout`` (seconds) bounds each collective.
     """
     if dist.is_initialized():
         return True
@@ -114,9 +116,10 @@ def decode_batch_distributed(
     Every rank calls this with its own images (``local_shard`` splits a
     global list).  Each rank entropy-decodes its images on the host and
     decodes the pixels with ``decode_batch_sharded`` on a (1, ``space``)
-    mesh of ``device`` (default :func:`default_device`).  The geometry is
-    checked across ranks: a corpus of more than one bucket raises
-    ValueError on every rank -- bucket it first (engine/batch.py).
+    mesh of ``device`` (default :func:`default_device`, this rank's card,
+    which raises without one; the CPU runs only for ``device="cpu"``).  The
+    geometry is checked across ranks: a corpus of more than one bucket
+    raises ValueError on every rank -- bucket it first (engine/batch.py).
 
     Returns this rank's RGB arrays in local order; with ``return_checksum``
     also the global decode signature (the sum of every output sample of

@@ -39,6 +39,21 @@ def test_initialize_from_env_single_process(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+def test_no_card_raises_without_device(monkeypatch):
+    """Without a card, omitting ``device`` raises instead of running on the
+    CPU (and so picking gloo): the CPU runs only for ``device="cpu"``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.default_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.decode_batch_distributed(_corpus(2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distributed.initialize_from_env(init_method="file:///nonexistent/rdzv", world_size=1,
+                                        rank=0)
+    assert not torch.distributed.is_initialized()
+
+
 def test_local_shard_covers_all():
     sl = distributed.local_shard(10)
     assert (sl.start, sl.stop) == (0, 10)

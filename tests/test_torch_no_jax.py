@@ -89,6 +89,30 @@ def test_parallel_imports_no_jax():
     assert "LEAKED []" in proc.stdout
 
 
+SWEEP = """
+import sys
+import torch
+from jpeg_gpu_tpu_torch.testing import specsync_artifact, sweep
+entry = sweep.load_manifest()["sweep"][17]
+checks = sweep.check_config(sweep.read_fixture(sweep.FIXTURES, entry), entry, torch.device("cpu"))
+assert checks["cuda_eq_host"] and checks["device_entropy_eq"] and checks["rgb_sha_eq_r05"], checks
+assert specsync_artifact.check_fallback(torch.device("cpu"))
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jpeg_gpu_tpu.")))
+print("LEAKED", leaked)
+assert not leaked, leaked
+"""
+
+
+def test_sweep_and_scan_artifact_import_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", SWEEP], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
 @pytest.mark.parametrize("upsample,entropy,extra", [
     ("nearest", "auto", {}), ("fancy", "python", {}), ("fancy", "device", {}),
     ("nearest", "auto", {"upload": "pack"}), ("fancy", "auto", {"exact": False}),
