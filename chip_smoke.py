@@ -167,6 +167,36 @@
    scan.  Both artifacts go to ``--out`` (default ``chiprun_out/``) as
    SWEEP_torch.json and SPECSYNC_DEVICE_torch.json, and their checks'
    launches add to the kernels line.
+11. Garbage in (``testing/fuzz.run("cuda")``): 90 seeded corrupt inputs
+   (the SWEEP_r05 frames and the package's own, mutated: random bytes,
+   truncations, bit flips, DQT, DHT, SOF, SOS, DRI, restart markers, byte
+   stuffing, a second SOS, a cut EOI) through the 12 entry points of
+   ``fuzz.PATHS`` -- 1080 (case, path) pairs -- each decoded or raising a
+   JpegError, never anything else and never a CUDA error, with a
+   synchronize after each; the seven single-image paths held to the CPU
+   port (the same outcome; equal pixels, within 2 for ``exact=False``); the
+   device-entropy and corpus paths run twice each, every CUDA tensor that
+   ``torch.empty`` makes (the wrappers' outputs and scratch, the engine's
+   uploads) filled with 0xA5 and then 0x5A between two red zones of the
+   same byte (``fuzz.poisoned_empty``), and must give the same bytes both
+   times with the red zones intact (an unwritten output slot or a read past
+   either end would show the poison, a write past either end a red zone).
+   Then K3 and K2's two forms at their wrappers on garbage the engine never
+   passes them (``fuzz.kernel_run``: spoiled window and stream words, bit
+   positions of no MCU, batches routed to no table set), each kernel run
+   twice poisoned and held to its plain version on the card; and the 20
+   sweep frames through the five single-image paths, each twice poisoned
+   and equal (K1-K6 give the same bytes twice).  The outcomes by path and
+   the launches by kernel are printed, K2 and K3 launched on corrupt input,
+   and the launches added to the kernels line.  Beside it, in subprocesses
+   with PyTorch's caching allocator off, compute-sanitizer (beside nvcc)
+   runs memcheck and initcheck over 100 pairs through ``entropy="device"``
+   and ``on_error="zero"`` (K3, its serial fallback, both forms of K2) and
+   90 ``kernel_run`` cases, each launching K3 or K2, and racecheck over the
+   20 sweep frames through every single-image path (K1-K6); an error or a
+   hazard fails the phase, a tool that is missing or refuses the card is
+   said so on its own line.  The phase's wall time is printed against its
+   budget of 120 s.
 
 Images come from the package's own baseline encoder, seeded.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at once.
@@ -483,6 +513,228 @@ def artifacts(kernels, data1080: bytes, out_dir: str):
     total = [a + b for a, b in zip(sweep_counts, scan_counts)]
     print(f"phase 10: launches {total} (K1..K6)")
     return total
+
+
+# Phase 11: the fuzz in process, and what the sanitizer runs see.
+FUZZ_CASES = 90                       # x 12 paths = 1080 (case, path) pairs
+FUZZ_COMPARED = ("auto", "python", "device", "pack", "float", "yuv", "zero")
+# Paths run twice, torch.empty's CUDA tensors filled with 0xA5 and then 0x5A
+# (K2's two forms, K3 and its fallback, the corpus K2 with its per-image
+# tables, K1 and K5 after them).
+FUZZ_POISONED = ("device", "zero", "batch_device", "resident")
+# The single-image paths that reach K1-K6 on valid frames.
+CLEAN_PATHS = ("auto", "device", "pack", "float", "yuv")
+KERNEL_CASES = 30                     # K3, K2 fused, K2 row form at their wrappers
+SANITIZER_CASES = 50                  # x 2 paths (device, zero) = 100 pairs,
+SANITIZER_KERNEL_CASES = 90           # then 90 that launch K3 or K2 at their wrappers
+SANITIZER_TIMEOUT_S = 100
+
+
+def sanitizer_runs(seed: int):
+    """Start compute-sanitizer (found beside nvcc) on the fuzz CLI in three
+    subprocesses at once: memcheck and initcheck on SANITIZER_CASES cases
+    through ``entropy="device"`` and ``on_error="zero"`` (K3's scan and its
+    serial fallback, K2's fused and row forms), then SANITIZER_KERNEL_CASES
+    cases of ``fuzz.kernel_run``, each of which launches K3 or K2; racecheck
+    on the 20 sweep frames through every single-image path (K1-K6).  PyTorch's caching
+    allocator is off (memcheck cannot see an overrun inside a pooled
+    block).  Returns [(tool, Popen or None, why None)]."""
+    import os
+    import pathlib
+
+    from jpeg_gpu_tpu_torch import cuda_build
+
+    exe = pathlib.Path(cuda_build.nvcc_path()).parent / "compute-sanitizer"
+    fuzz_cli = [sys.executable, "-m", "jpeg_gpu_tpu_torch.testing.fuzz", "--device", "cuda"]
+    k2k3 = ["--seed", str(seed), "--n", str(SANITIZER_CASES), "--paths", "device,zero",
+            "--kernels", str(SANITIZER_KERNEL_CASES)]
+    runs = {
+        "memcheck": k2k3,
+        "initcheck": k2k3,
+        "racecheck": ["--clean", "--paths", "auto,device,pack,float,yuv"],
+    }
+    if not exe.exists():
+        return [(tool, None, f"no compute-sanitizer beside nvcc ({exe})") for tool in runs]
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1", PYTHONPATH=str(root))
+    out = []
+    for tool, extra in runs.items():
+        cmd = [str(exe), "--tool", tool, "--error-exitcode", "9", *fuzz_cli, *extra]
+        out.append((tool, subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT, text=True), cmd))
+    return out
+
+
+def sanitizer_verdicts(runs) -> list:
+    """Wait for each sanitizer run and judge it: (tool, verdict, lines).
+    "clean" where the tool ran the program to its end with 0 errors (0
+    hazards for racecheck) and the fuzz CLI passed; "unavailable" where the
+    tool is missing or refuses the card; "failed" otherwise."""
+    verdicts = []
+    for tool, proc, cmd in runs:
+        if proc is None:
+            verdicts.append((tool, "unavailable", [cmd]))
+            continue
+        try:
+            text, _ = proc.communicate(timeout=SANITIZER_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+            verdicts.append((tool, "failed", [f"timed out after {SANITIZER_TIMEOUT_S} s"]
+                             + text.splitlines()[-5:]))
+            continue
+        lines = text.splitlines()
+        notes = [line for line in lines if line.startswith("=========")]
+        summary = [line for line in lines
+                   if "SUMMARY" in line or line.startswith(("fuzz on ", "kernels on "))]
+        if any("Device not supported" in line for line in notes):
+            verdicts.append((tool, "unavailable", [" ".join(cmd)] + notes[:3]))
+        elif proc.returncode == 0 and any(
+                "ERROR SUMMARY: 0 errors" in line or "RACECHECK SUMMARY: 0 hazards" in line
+                for line in summary):
+            verdicts.append((tool, "clean", summary))
+        else:
+            verdicts.append((tool, "failed", [f"rc {proc.returncode}"] + notes[:20] + lines[-5:]))
+    return verdicts
+
+
+def fuzz_phase(kernels, card: str, seed: int):
+    """Phase 11: the port's garbage-in contract on the card
+    (``testing/fuzz``): FUZZ_CASES seeded garbage inputs through every entry
+    point (FUZZ_COMPARED held to the CPU port, FUZZ_POISONED run twice
+    poisoned), KERNEL_CASES of K3 and K2 at their wrappers, and the 20 sweep
+    frames twice poisoned through CLEAN_PATHS; meanwhile the sanitizer runs.
+    Returns the in-process launches (K1..K6)."""
+    from jpeg_gpu_tpu_torch.testing import fuzz
+
+    t0 = time.perf_counter()
+    runs = sanitizer_runs(seed + 11)
+    # Controls: inside the block a CUDA tensor from torch.empty holds the
+    # poison, and a write one byte past its end shows in its red zone.
+    with fuzz.poisoned_empty(fuzz.POISON[0]) as zones:
+        t = torch.empty(1000, dtype=torch.int16, device="cuda")
+        u = torch.empty(1000, dtype=torch.int16, device="cuda")
+    assert bool((t.view(torch.uint8) == fuzz.POISON[0]).all()) and zones.written() == 0
+    with fuzz.poisoned_empty(fuzz.POISON[0]) as zones:
+        t = torch.empty(1000, dtype=torch.int16, device="cuda")
+    zones.buffers[0][fuzz.RED_ZONE + 2000] = 0
+    assert zones.written() == 1
+    del t, u
+    torch.cuda.synchronize()
+    for mod in kernels:
+        mod.launches = 0
+    res = fuzz.run("cuda", seed=seed + 11, n=FUZZ_CASES, paths=fuzz.PATHS,
+                   compare_cpu=FUZZ_COMPARED, poisoned=FUZZ_POISONED)
+    kres = fuzz.kernel_run("cuda", seed=seed + 11, n=KERNEL_CASES)
+    # The 20 sweep frames through every single-image path, each run twice
+    # poisoned: K1-K6 must give the same bytes twice (a stand-in for racecheck
+    # that sees only races whose outcome varies between runs).
+    clean = fuzz.run("cuda", paths=CLEAN_PATHS, srcs=fuzz.sources()[:20], clean=True,
+                     poisoned=CLEAN_PATHS)
+    seen = [mod.launches for mod in kernels]
+    by_kernel = [sum(r["launches"][p][f"K{k + 1}"] for r, paths in
+                     ((res, fuzz.PATHS), (clean, CLEAN_PATHS)) for p in paths) for k in range(6)]
+    by_kernel[1] += kres["launches"]["K2"]
+    by_kernel[2] += kres["launches"]["K3"]
+    for path in fuzz.PATHS:
+        print(f"fuzz {path}: {json.dumps(res['by_path'][path])}, launches "
+              f"{json.dumps(res['launches'][path])}")
+    print(f"fuzz on the card: {res['pairs']} (case, path) pairs of {res['n_cases']} cases "
+          f"(seed {res['seed']}), {res['compared_cpu']} held to the CPU port, "
+          f"{len(res['violations'])} violations, {len(res['mismatches'])} CPU mismatches, "
+          f"CUDA error: {res['cuda_error']}, {res['seconds']:.1f} s  [{card}]")
+    print(f"fuzz decodes on entropy='device' / on_error='zero' through K2 and through the "
+          f"host fallback: {json.dumps(res['device_decoded_via'])}")
+    print(f"fuzz with torch.empty's CUDA tensors poisoned between red zones of "
+          f"{fuzz.RED_ZONE} bytes ({', '.join(FUZZ_POISONED)}; {fuzz.POISON[0]:#x} then "
+          f"{fuzz.POISON[1]:#x}): {res['poisoned_pairs']} pairs twice, "
+          f"{len(res['poison_mismatches'])} differ or wrote a red zone")
+    print(f"K3, K2 fused and K2 row form at their wrappers on garbage the engine never passes "
+          f"them (spoiled words, bit positions of no MCU, batches without tables): "
+          f"{kres['cases']} cases {json.dumps(kres['by_form'])}, each kernel run twice poisoned "
+          f"and its plain version on the card: {len(kres['mismatches'])} differ, "
+          f"{len(kres['violations'])} violations, CUDA error: {kres['cuda_error']}, launches "
+          f"{json.dumps(kres['launches'])}, {kres['seconds']:.1f} s")
+    print(f"the 20 sweep frames through {', '.join(CLEAN_PATHS)}, each twice poisoned: "
+          f"{json.dumps({p: clean['by_path'][p] for p in CLEAN_PATHS})}, "
+          f"{clean['poisoned_pairs']} pairs, {len(clean['poison_mismatches'])} differ or wrote a "
+          f"red zone, {clean['seconds']:.1f} s")
+    print(f"fuzz launches by kernel (K1..K6): {by_kernel}")
+    for v in (res["violations"] + res["mismatches"] + res["poison_mismatches"]
+              + kres["violations"] + kres["mismatches"] + clean["violations"]
+              + clean["poison_mismatches"]):
+        print(f"  {json.dumps(v)}")
+    assert kres["cuda_error"] is None, kres["cuda_error"]
+    assert kres["ok"] and kres["cases"] == KERNEL_CASES, kres
+    assert clean["ok"] and clean["poisoned_pairs"] == 20 * len(CLEAN_PATHS), clean
+    assert all(clean["by_path"][p] == {"decoded": 20} for p in CLEAN_PATHS), clean["by_path"]
+    assert res["cuda_error"] is None, res["cuda_error"]
+    assert res["ok"], (res["violations"], res["mismatches"], res["poison_mismatches"])
+    assert res["pairs"] >= 1000 and res["compared_cpu"] >= 300, res
+    assert res["poisoned_pairs"] == FUZZ_CASES * len(FUZZ_POISONED) - sum(
+        n for p in FUZZ_POISONED for o, n in res["by_path"][p].items() if o.startswith("viol"))
+    assert by_kernel == seen, (by_kernel, seen)
+    # K2 and K3 ran on corrupt input (K3 only on the device paths).
+    device_k = res["launches"]["device"]
+    assert device_k["K2"] > 0 and device_k["K3"] > 0, device_k
+    t_fuzz = time.perf_counter() - t0
+    verdicts = sanitizer_verdicts(runs)
+    for tool, verdict, lines in verdicts:
+        print(f"compute-sanitizer --tool {tool}: {verdict}")
+        for line in lines:
+            print(f"  {line}")
+    assert all(v != "failed" for _, v, _ in verdicts), verdicts
+    wall = time.perf_counter() - t0
+    print(f"phase 11: in-process fuzz {t_fuzz:.1f} s, with the sanitizer runs {wall:.1f} s wall "
+          f"(budget 120 s: {'within' if wall <= 120 else 'OVER'})")
+    return by_kernel
+
+
+def verdict_order(data: bytes, card: str, reps: int = 20) -> None:
+    """What reading the index scan's verdict before K2 costs: K3 -> ok and
+    stats to the host in one copy -> K2's fused form (the engine's order),
+    against K3 -> K2 -> ok and stats (K2 enqueued before the verdict), host
+    clock from the scan's call to a sync after K2, on the 1080p frame
+    without restart markers, best of ``reps`` in turns."""
+    from jpeg_gpu_tpu_torch.engine import device_entropy
+    from jpeg_gpu_tpu_torch.host import segments
+    from jpeg_gpu_tpu_torch.host.parser import parse
+    from jpeg_gpu_tpu_torch.ops import entropy_device, specsync_device
+    from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
+
+    dev = torch.device("cuda")
+    inp = segments.build_spec_scan_input(parse(data), sb_target=device_entropy.SCAN_SB_TARGET)
+    tabs = device_entropy.device_tables(inp.cbase, inp.counts, inp.symbols, dev, scan=True)
+    w, dc_c, ac_c, cm, dm, am = plan_tensors(
+        (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
+         inp.dc_slot_of_step, inp.ac_slot_of_step), dev)
+
+    def once(first: bool) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bitpos, ok, stats = specsync_device.device_index_scan(
+            w, inp.n_bits, dc_c, ac_c, tabs.cbase, tabs.counts, tabs.symbols,
+            sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus, lut=tabs.k3_lut)
+        verdict = torch.cat([stats, ok.reshape(1).to(stats.dtype)]) if first else None
+        if first:
+            assert verdict.cpu().numpy()[3]
+        entropy_device.decode_mcus_at_bitpos(
+            w, bitpos, inp.n_bits, cm, dm, am, tabs.cbase, tabs.counts, tabs.symbols,
+            spw=inp.spw, lut=tabs.k2_lut)
+        if not first:
+            assert torch.cat([stats, ok.reshape(1).to(stats.dtype)]).cpu().numpy()[3]
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    once(True), once(False)
+    runs = {True: [], False: []}
+    for _ in range(reps):
+        for first in (True, False, False, True):
+            runs[first].append(once(first))
+    print(f"index scan verdict read before K2 (the engine) / after K2, K3 + K2 fused, "
+          f"1080p 4:2:0, host clock, best of {2 * reps} in turns: {min(runs[True])} / "
+          f"{min(runs[False])} ms (medians {float(np.median(runs[True]))} / "
+          f"{float(np.median(runs[False]))})  [{card}]")
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -2103,6 +2355,7 @@ def main() -> int:
         for stage, ms in split.items():
             print(f"  {stage}: {ms} ms")
         print(f"  sum: {sum(split.values())} ms")
+    verdict_order(data1080, card)
     busy_share(data1080, card)
 
     phase_done(8)
@@ -2119,6 +2372,11 @@ def main() -> int:
     main_launches = [a + b for a, b in zip(main_launches, artifact_launches)]
 
     phase_done(10)
+    # -- 11. garbage in: the fuzz on the card, and the sanitizer runs ----------
+    fuzz_launches = fuzz_phase(kernels, card, args.seed)
+    main_launches = [a + b for a, b in zip(main_launches, fuzz_launches)]
+
+    phase_done(11)
     def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None, **more):
         return {
             "name": stem,

@@ -123,17 +123,27 @@ class Decoder:
             return entropy_native.available()
         return False
 
+    def _host_parse(self) -> ParsedJpeg:
+        """The parsed stream for a host entropy decode, which sizes its
+        coefficients by the frame: a stream of one segment too short for
+        that frame raises first (device_entropy.check_one_segment)."""
+        from jpeg_gpu_tpu_torch.engine.device_entropy import check_one_segment
+
+        parsed = self._parse()
+        check_one_segment(parsed)
+        return parsed
+
     def _entropy(self, want_pack: bool = False) -> host_entropy.ScanResult:
         if self._scan is None or (want_pack and not self._scan_packed):
             if self._use_native():
                 from jpeg_gpu_tpu_torch.host import entropy_native
 
                 self._scan = entropy_native.decode_scan(
-                    self._parse(), want_pack=want_pack, validate=self.validate
+                    self._host_parse(), want_pack=want_pack, validate=self.validate
                 )
             else:
                 self._scan = host_entropy.decode_scan(
-                    self._parse(), want_pack=want_pack, validate=self.validate
+                    self._host_parse(), want_pack=want_pack, validate=self.validate
                 )
             self._scan_packed = want_pack
         return self._scan
@@ -148,7 +158,7 @@ class Decoder:
             from jpeg_gpu_tpu_torch.host import entropy_native
 
             self._scan_soa = entropy_native.decode_scan(
-                self._parse(), soa=True, validate=self.validate
+                self._host_parse(), soa=True, validate=self.validate
             ).coefs
         return self._scan_soa
 

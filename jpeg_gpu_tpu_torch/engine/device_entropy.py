@@ -95,11 +95,38 @@ def device_tables(cbase, counts, symbols, device, scan: bool) -> DeviceTables:
     return tabs
 
 
-def _spec_decode_kernel_out(inp: SpecScanInput, device):
-    """Device index scan (K3) -> K2's fused form, which reads the scan's
-    windows at the MCUs' bit positions and applies the DC predictors.
-    Returns (kernel_out, err, ok, stats); the outputs are garbage unless ok
-    (the caller then falls back)."""
+def mcu_starts_fit(n_bits: int, n_mcus: int, bpm: int) -> bool:
+    """Whether ``n_bits`` of entropy-coded data can hold the starts of
+    ``n_mcus`` MCUs of ``bpm`` blocks.  A block takes at least two codes,
+    its DC and one AC (EOB at the least), and every code at least one bit,
+    so MCU starts lie at least ``2 * bpm`` bits apart, the first at bit 0 and
+    all before the stream's end.  Where they do not fit, the stream cannot
+    be the frame its SOF claims: the device index scan cannot find its MCUs
+    (its ``ok`` is False), and no buffer is sized by that frame."""
+    return n_bits > 0 and n_mcus <= (n_bits - 1) // (2 * bpm) + 1
+
+
+def _spec_decode_try(parsed: ParsedJpeg, device):
+    """Decode a stream without restart markers through the device index scan
+    (K3), then K2's fused form, which reads the scan's windows at the MCUs'
+    bit positions and applies the DC predictors.
+
+    Returns (kernel_out, err, stats) with the DC bases applied, or None
+    when the scan did not converge, overflowed its records, or the stream
+    is out of range: the caller then falls back to the serial host scan
+    (build_plan_auto), as the reference does.  A stream too short for its
+    frame (:func:`mcu_starts_fit`) is not scanned, since the scan cannot find its
+    MCUs; the scan's ``ok`` is read, with its stats in one copy, before K2
+    is enqueued or its output allocated, so K2 never runs on the bit
+    positions of a scan that failed."""
+    try:
+        inp = build_spec_scan_input(parsed, sb_target=SCAN_SB_TARGET)
+    except JpegUnsupportedError:
+        return None
+    if not mcu_starts_fit(inp.n_bits, inp.n_mcus, inp.bpm):
+        log.debug("%d scan bits cannot hold %d MCUs; serial index scan",
+                  inp.n_bits, inp.n_mcus)
+        return None
     tabs = device_tables(inp.cbase, inp.counts, inp.symbols, device, scan=True)
     windows, dcslot_c, acslot_c, comp_map, dcslot_map, acslot_map = plan_tensors(
         (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
@@ -109,32 +136,18 @@ def _spec_decode_kernel_out(inp: SpecScanInput, device):
         windows, inp.n_bits, dcslot_c, acslot_c, tabs.cbase, tabs.counts, tabs.symbols,
         sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus, lut=tabs.k3_lut,
     )
-    out, err = entropy_device.decode_mcus_at_bitpos(
-        windows, bitpos, inp.n_bits, comp_map, dcslot_map, acslot_map,
-        tabs.cbase, tabs.counts, tabs.symbols, spw=inp.spw, lut=tabs.k2_lut,
-    )
-    return out, err, ok, stats
-
-
-def _spec_decode_try(parsed: ParsedJpeg, device):
-    """Decode a stream without restart markers through the device index scan.
-
-    Returns (kernel_out, err, stats) with the DC bases applied, or None
-    when the scan did not converge, overflowed its records, or the stream
-    is out of range: the caller then falls back to
-    the serial host scan (build_plan_auto)."""
-    try:
-        inp = build_spec_scan_input(parsed, sb_target=SCAN_SB_TARGET)
-    except JpegUnsupportedError:
-        return None
-    out, err, ok, stats = _spec_decode_kernel_out(inp, device)
-    stats = stats.cpu().numpy()
-    if not bool(ok):
+    verdict = torch.cat([stats, ok.reshape(1).to(stats.dtype)]).cpu().numpy()
+    stats = verdict[:3]
+    if not verdict[3]:
         log.debug(
             "device index scan did not converge (stats=%s); falling back "
             "to the serial index scan", stats,
         )
         return None
+    out, err = entropy_device.decode_mcus_at_bitpos(
+        windows, bitpos, inp.n_bits, comp_map, dcslot_map, acslot_map,
+        tabs.cbase, tabs.counts, tabs.symbols, spw=inp.spw, lut=tabs.k2_lut,
+    )
     return out, err, stats
 
 
@@ -144,6 +157,26 @@ def _scan_geometry(header) -> Tuple[Tuple[int, int], ...]:
         (header.components[i].hsamp, header.components[i].vsamp)
         for i in header.scan.comp_idx
     )
+
+
+def check_one_segment(parsed: ParsedJpeg, what: str = "the stream") -> None:
+    """Raise JpegFormatError for a stream of one entropy-coded segment (no
+    restart markers, or an interval longer than the frame) whose bytes
+    cannot hold the starts of its frame's MCUs (:func:`mcu_starts_fit`,
+    counted before destuffing, so never short of the truth).  Its decode
+    could only fail: the serial index scan and the host decode run out of
+    bits (the error the reference raises), and K2 would flag the segment.
+    But a plan of that segment would size K2's output by the frame its SOF
+    claims, every block step of it in one lane's row, so the stream is
+    refused before that."""
+    if len(parsed.segments) != 1:
+        return
+    start, end = (int(x) for x in parsed.segments[0])
+    bpm = sum(hs * vs for hs, vs in _scan_geometry(parsed.header))
+    if not mcu_starts_fit(8 * (end - start), parsed.header.n_mcus, bpm):
+        raise JpegFormatError(
+            f"{what}: its {end - start} bytes of scan cannot hold the frame's "
+            f"{parsed.header.n_mcus} MCUs")
 
 
 def _raise_on_segment_flags(err: torch.Tensor, n_segments: int, kind: str) -> None:
@@ -198,6 +231,7 @@ def entropy_decode_device(
         kernel_out, err, spec_stats = spec_result
         plan_nseg, plan_mps = header.n_mcus, 1
     else:
+        check_one_segment(parsed)
         plan = build_plan_auto(parsed)
         plan_nseg, plan_mps = plan.n_segments, plan.mcus_per_segment
         tabs = device_tables(plan.cbase, plan.counts, plan.symbols, device, scan=False)
@@ -273,9 +307,9 @@ def _spec_decode_sharded_try(parsed: ParsedJpeg, mesh, exact, upsample, check_er
     """Sharded decode of a stream without restart markers through the device
     index scan (``parallel/shard.decode_image_device_sharded_spec``).
 
-    Returns the cropped RGB array, or None when the scan did not converge
-    or the stream is out of its range: the caller then takes the serial
-    host scan."""
+    Returns the cropped RGB array, or None when the scan did not converge,
+    the stream is out of its range or too short for its frame
+    (:func:`mcu_starts_fit`): the caller then takes the serial host scan."""
     from jpeg_gpu_tpu_torch.engine import pipeline
     from jpeg_gpu_tpu_torch.parallel import shard
 
@@ -284,6 +318,8 @@ def _spec_decode_sharded_try(parsed: ParsedJpeg, mesh, exact, upsample, check_er
         inp = build_spec_scan_input(parsed, sb_target=SCAN_SB_TARGET)
     except JpegUnsupportedError:
         return None
+    if not mcu_starts_fit(inp.n_bits, inp.n_mcus, inp.bpm):
+        return None
     spec = pipeline.PipelineSpec.from_header(header, exact=exact, upsample=upsample)
     first = mesh.first_device
     tabs = device_tables(inp.cbase, inp.counts, inp.symbols, first, scan=True)
@@ -291,7 +327,7 @@ def _spec_decode_sharded_try(parsed: ParsedJpeg, mesh, exact, upsample, check_er
         (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
          inp.dc_slot_of_step, inp.ac_slot_of_step, inp.seg_meta), first)
     qts = plan_tensors([header.quant_for(c).values for c in header.components], first)
-    rgb, err, ok = shard.decode_image_device_sharded_spec(
+    result = shard.decode_image_device_sharded_spec(
         spec, mesh,
         (header.n_mcus, 1, header.n_mcus, header.nhmb, header.nvmb,
          _scan_geometry(header), header.scan.comp_idx),
@@ -300,9 +336,10 @@ def _spec_decode_sharded_try(parsed: ParsedJpeg, mesh, exact, upsample, check_er
         (comp_map, dcslot, acslot, seg_meta, tabs.cbase, tabs.counts, tabs.symbols),
         qts, luts=(tabs.k2_lut, tabs.k3_lut),
     )
-    if not bool(ok):
+    if result is None:
         log.debug("sharded device index scan did not converge; falling back")
         return None
+    rgb, err = result
     if check_errors:
         _raise_on_segment_flags(err, header.n_mcus, "pseudo segment")
     return rgb[: header.height, : header.width].cpu().numpy()
@@ -345,6 +382,7 @@ def decode_image_device_sharded(
         rgb = _spec_decode_sharded_try(parsed, mesh, exact, upsample, check_errors)
         if rgb is not None:
             return rgb
+    check_one_segment(parsed)
     plan = build_plan_auto(parsed)
     streams = plan.streams
     pad = (-streams.shape[0]) % mesh.shape[DATA_AXIS]

@@ -247,7 +247,10 @@ def build_plan(
     header = parsed.header
     scan = header.scan
     assert scan is not None
-    interval = header.restart_interval or header.n_mcus
+    # A restart interval longer than the frame leaves one segment of n_mcus
+    # MCUs: the rows' block steps are sized by those, not by the interval
+    # (a DRI of 65535 on a small frame would size K2's output at 51 GB).
+    interval = min(header.restart_interval or header.n_mcus, header.n_mcus)
     nseg = len(parsed.segments)
 
     # Destuff + word-pack every segment.  The native C++ packer is a

@@ -168,6 +168,29 @@ class BitWindow:
         self.navail = self.navail - n
 
 
+class StreamWindow(BitWindow):
+    """Lockstep windows over the destuffed stream that the index scan's
+    window tensor ``windows`` (BS, NWS, 8, 128) tiles, lane m from stream bit
+    ``start[m]`` on: flat stream word W sits at ``[W // spw // 1024, W % spw,
+    (W // spw) % 1024]``, and words past the grid read 0xFFFFFFFF, as K2's
+    fused form reads them.  Each word is looked up when a lane needs it, so
+    nothing is sized by the words a lane might read."""
+
+    def __init__(self, windows, spw: int, start):
+        self.flat = windows.reshape(-1)
+        self.nws, self.spw = windows.shape[1], spw
+        self.grid = windows.shape[0] * SLOTS * spw
+        wp, sh = start >> 5, start & 31
+        w0, w1 = self.fetch(wp), self.fetch(wp + 1)
+        super().__init__(None, _shl(w0, sh) | (w1 >> (32 - sh)), _shl(w1, sh), 64 - sh, wp + 2)
+
+    def fetch(self, wp):
+        w = torch.clamp(wp, max=self.grid - 1)
+        g = w // self.spw
+        idx = ((g // SLOTS) * self.nws + (w - g * self.spw)) * SLOTS + g % SLOTS
+        return torch.where(wp < self.grid, u32(self.flat[idx]), _U32)
+
+
 def _check_decode_args(streams, img_of_batch, comp_map, dcslot_map, acslot_map,
                        seg_meta, cbase, counts, symbols):
     if streams.dim() != 4 or tuple(streams.shape[2:]) != (SUBLANES, LANES):
@@ -195,7 +218,7 @@ def _check_decode_args(streams, img_of_batch, comp_map, dcslot_map, acslot_map,
 
 def decode_segments_reference(
     streams, img_of_batch, comp_map, dcslot_map, acslot_map, seg_meta,
-    cbase, counts, symbols, return_bits: bool = False,
+    cbase, counts, symbols,
 ):
     """Plain PyTorch version of K2's row form, on any device.
 
@@ -203,21 +226,29 @@ def decode_segments_reference(
     one symbol per iteration, as the JAX kernel's interpret path runs;
     the AC loop stops once every slot has reached EOB.  A batch whose image
     index has no tables flags all its segments and decodes nothing, as the
-    kernel does.  Returns (coefs, err), and with ``return_bits`` also the
-    bits each slot consumed, (B, 8, 128) int64.
+    kernel does.  Returns (coefs, err).
     """
-    dev = streams.device
     b, nw = streams.shape[0], streams.shape[1]
+    rows = u32(streams.reshape(b, nw, SLOTS).permute(0, 2, 1).reshape(b * SLOTS, nw))
+    zero = torch.zeros(b * SLOTS, dtype=torch.int64, device=streams.device)
+    win = BitWindow(rows, zero, zero, zero, zero)
+    return _decode_lanes(win, b, img_of_batch, comp_map, dcslot_map, acslot_map,
+                         seg_meta, cbase, counts, symbols)
+
+
+def _decode_lanes(win, b, img_of_batch, comp_map, dcslot_map, acslot_map, seg_meta,
+                  cbase, counts, symbols):
+    """The lockstep decode of :func:`decode_segments_reference` from the bit
+    windows ``win`` of its ``b * 1024`` lanes; ``win`` is left where each
+    lane stopped.  Returns (coefs, err)."""
+    dev = img_of_batch.device
     nsteps = comp_map.shape[0]
     n = b * SLOTS
-    rows = u32(streams.reshape(b, nw, SLOTS).permute(0, 2, 1).reshape(n, nw))
     ni = cbase.shape[0]
     img_ok = ((img_of_batch >= 0) & (img_of_batch < ni)).repeat_interleave(SLOTS)
     img = torch.where(img_ok, img_of_batch.repeat_interleave(SLOTS), 0).to(torch.int64)
     sub = torch.arange(SLOTS, device=dev).repeat(b) // LANES             # (N,)
     tab = _Tables(cbase, counts, symbols)
-    zero = torch.zeros(n, dtype=torch.int64, device=dev)
-    win = BitWindow(rows, zero, zero, zero, zero)
     dc = torch.zeros((4, n), dtype=torch.int32, device=dev)
     flags = torch.zeros(n, dtype=torch.int32, device=dev)
     out = torch.zeros((b, nsteps, 64, SLOTS), dtype=torch.int16, device=dev)
@@ -283,8 +314,6 @@ def decode_segments_reference(
     out = torch.where(img_ok.reshape(b, 1, 1, SLOTS), out, 0)
     out = out.reshape(b, nsteps, 64, SUBLANES, LANES)
     flags = torch.where(img_ok, flags, ERR_BAD_CODE).reshape(b, SUBLANES, LANES)
-    if return_bits:
-        return out, flags, (win.wp * 32 - win.navail).reshape(b, SUBLANES, LANES)
     return out, flags
 
 
@@ -620,33 +649,33 @@ def decode_mcus_at_bitpos_reference(
     cbase, counts, symbols, *, spw: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2's fused form, on any device: the chain
-    the kernel replaces.  :func:`gather_entropy_streams` builds a row per
-    MCU, wide enough for the most bits a lane can consume (so no row ever
-    runs out, whatever ``bitpos`` holds); :func:`decode_segments_reference`
-    decodes them from DC 0; a lane that consumed more bits than its MCU
-    holds is flagged; the exclusive cumulative sums of the lanes' DC totals
-    are added to their DC rows.  Lanes past ``n_mcus`` give zeros and no
-    flag."""
+    the kernel replaces, with the gather done word by word.  Lane m reads the
+    stream from bit ``bitpos[m]`` through a :class:`StreamWindow` (the
+    windows :func:`gather_entropy_streams` would copy out, looked up as the
+    lane needs them, so no index over every word a lane might read is
+    built); :func:`decode_segments_reference`'s lockstep decode runs from DC
+    0; a lane that consumed more bits than its MCU holds is flagged; the
+    exclusive cumulative sums of the lanes' DC totals are added to their DC
+    rows.  Lanes past ``n_mcus`` give zeros and no flag."""
     args = _check_fused_args(windows, bitpos, n_bits, comp_map, dcslot_map, acslot_map,
                              cbase, counts, symbols, spw)
     dev = windows.device
-    bs, nws = windows.shape[:2]
-    n_mcus, nsteps = bitpos.shape[0], comp_map.shape[0]
+    n_mcus = bitpos.shape[0]
     b2 = -(-n_mcus // SLOTS)
-    # A block step consumes at most 64 symbols of at most 31 bits.
-    nw = min(nsteps * 64 * 31 // 32, bs * SLOTS * spw) + 3
-    streams = gather_entropy_streams(windows, bitpos, nw=nw, spw=spw, nws=nws)
+    start = torch.zeros(b2 * SLOTS, dtype=torch.int64, device=dev)
+    start[:n_mcus] = u32(bitpos)        # padding lanes replay bit 0
+    win = StreamWindow(windows, spw, start)
     # No short last segment: every lane holds one whole MCU.
     seg_meta = torch.tensor([[-1, -1, 0]], dtype=torch.int32, device=dev)
-    out, err, used = decode_segments_reference(
-        streams, torch.zeros(b2, dtype=torch.int32, device=dev), *args[2:5], seg_meta,
-        cbase[None], counts[None], symbols[None], return_bits=True)
-    start = u32(bitpos)
+    out, err = _decode_lanes(
+        win, b2, torch.zeros(b2, dtype=torch.int32, device=dev), *args[2:5], seg_meta,
+        cbase[None], counts[None], symbols[None])
+    used = win.wp * 32 - win.navail - start
+    start = start[:n_mcus]
     end = torch.cat([start[1:], start.new_tensor([n_bits])])
     real = torch.arange(b2 * SLOTS, device=dev) < n_mcus
     err = err.reshape(-1)
-    err[:n_mcus] |= torch.where(start + used.reshape(-1)[:n_mcus] > end, ERR_OVERRUN, 0).to(
-        torch.int32)
+    err[:n_mcus] |= torch.where(start + used[:n_mcus] > end, ERR_OVERRUN, 0).to(torch.int32)
     err = torch.where(real, err, 0).reshape(b2, SUBLANES, LANES)
     out = torch.where(real.reshape(b2, 1, 1, SUBLANES, LANES), out, 0)
     cm = (comp_map & 3).tolist()
@@ -833,5 +862,5 @@ def plan_tensors(arrays, device) -> Tuple[torch.Tensor, ...]:
     for a, at in zip(arrays, starts):
         view[at: at + a.size] = a.reshape(-1)
     # The pinned block returns to torch's host cache only after the copy.
-    dev = host.to(device, non_blocking=True)
+    dev = torch.empty(total, dtype=torch.int32, device=device).copy_(host, non_blocking=True)
     return tuple(dev[at: at + a.size].reshape(a.shape) for a, at in zip(arrays, starts))

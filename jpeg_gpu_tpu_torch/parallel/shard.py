@@ -367,10 +367,11 @@ def decode_image_device_sharded_spec(
     This is the reference's chain (gather -> row form -> DC bases), not K2's
     fused form, whose DC pass sums predictors inside one call only.
 
-    Returns (rgb, err, ok) on the mesh's first device: rgb (padH, padW, 3);
-    err (B2, 8, 128) flags, B2 the MCU batches padded to the data axis; ok a
-    bool tensor, False when the scan did not converge or a pseudo segment
-    outgrows its row (the caller then falls back to the serial scan).
+    Returns (rgb, err) on the mesh's first device: rgb (padH, padW, 3);
+    err (B2, 8, 128) flags, B2 the MCU batches padded to the data axis; or
+    None when the scan did not converge or a pseudo segment outgrows its
+    row (the caller then falls back to the serial scan).  The scan's verdict
+    is read on the host before any row is gathered or decoded.
     """
     n_segments, mps, n_mcus, nhmb, nvmb, geom, frame_order = assemble_args
     sb, maxrec, nw, spw, nws, t_last = scan_cfg
@@ -396,6 +397,10 @@ def decode_image_device_sharded_spec(
         ok = ok & (seg_bits.max() + 63 <= nw * 32)
         bitpos = torch.nn.functional.pad(bitpos, (0, b2 * entropy_device.SLOTS - n_mcus))
         scans[dev] = (w, bitpos, ok)
+    # The verdict before anything is gathered or decoded at the scan's bit
+    # positions (the same on every device: one read).
+    if not bool(scans[mesh.devices[0][0]][2]):
+        return None
     outs, errs = [], []
     for d in range(data):
         dev = mesh.devices[d][0]
@@ -417,8 +422,7 @@ def decode_image_device_sharded_spec(
     comps = _gathered(outs, mesh.devices[0], _assembler(assemble_args, fg), post=dc_bases)
     rgbs = _pixel_row(spec, fg, comps, mesh.devices[0], qtables)
     first = mesh.first_device
-    ok = scans[mesh.devices[0][0]][2]
-    return all_gather(rgbs, first, dim=-3), all_gather(errs, first), to(ok, first)
+    return all_gather(rgbs, first, dim=-3), all_gather(errs, first)
 
 
 def decode_corpus_device_sharded(

@@ -159,8 +159,11 @@ def test_streams_without_restart_markers_take_the_fused_entry(monkeypatch, stage
     got = dec.decode(stage)
     assert dec.specsync_stats is not None
     assert fused == ["decode_mcus_at_bitpos"] and not rows
-    # On the CPU the fused form's plain version is the chain, gather included.
-    assert len(gathers) == 1
+    # On the CPU the fused form's plain version is the chain, but it reads
+    # each lane's words when the lane needs them: it gathers no rows (a
+    # gather of every word a lane might read was 3 GB at a claimed
+    # 16000x16000, tests/test_torch_fuzz.py).
+    assert not gathers
     ref = jr.decode(data, out=stage, impl="tpu", entropy="device")
     host = jr.decode(data, out=stage, impl="host")
     parts = lambda r: [r] if isinstance(r, np.ndarray) else r.planes  # noqa: E731

@@ -113,6 +113,27 @@ def test_sweep_and_scan_artifact_import_no_jax():
     assert "LEAKED []" in proc.stdout
 
 
+FUZZ = """
+import sys
+from jpeg_gpu_tpu_torch.testing import fuzz
+res = fuzz.run("cpu", seed=0, n=4, paths=("auto", "device", "batch_device"))
+assert res["ok"] and res["pairs"] == 12, res
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jpeg_gpu_tpu.")))
+print("LEAKED", leaked)
+assert not leaked, leaked
+"""
+
+
+def test_fuzz_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", FUZZ], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
 @pytest.mark.parametrize("upsample,entropy,extra", [
     ("nearest", "auto", {}), ("fancy", "python", {}), ("fancy", "device", {}),
     ("nearest", "auto", {"upload": "pack"}), ("fancy", "auto", {"exact": False}),
