@@ -197,11 +197,32 @@
    hazard fails the phase, a tool that is missing or refuses the card is
    said so on its own line.  The phase's wall time is printed against its
    budget of 120 s.
+12. BASELINE configs 3 and 5 at their published sizes
+   (``testing/fullsize.py``): the four frames -- 7680x4320 4:2:0 with a
+   restart marker every MCU (129,600 segments) and without, 3840x2160 4:4:4
+   the same -- built from committed coefficients by the worker processes of
+   phase 1 (with the CPU port's decodes of them), each sha256 held to
+   ``fullsize_manifest.json`` first.  Each through host entropy (nearest and
+   fancy, K1), ``entropy="device"`` (nearest and fancy: K2's row form and its
+   table kernel at R=1; K3 and K2's fused form without restart markers, no
+   serial or host fallback), ``out="yuv"`` (K5, one launch),
+   ``upload="pack"`` fancy (K4 -> K5), ``exact=False`` (K6) and
+   ``decode_image_device_sharded`` on (data, space) = (2, 2), (1, 2), (2, 1)
+   meshes of one card, nearest and fancy: every exact output equal to the
+   JAX package's committed checksum and to the CPU port's decode, fancy RGB
+   to libjpeg's, ``exact=False`` within 2 of the CPU port and 4 of the exact
+   decode, sharded equal to unsharded; each decode's launches counted from an
+   empty table cache and held to their stated values, its peak device
+   memory, and the host clock, best of 3.  Then the ``entropy="device"``
+   stage split of the 8K frames and each kernel's device time from
+   torch.profiler beside its bound at these shapes; the phase's wall time
+   against its budget of 120 s.
 
 Images come from the package's own baseline encoder, seeded.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at once.
-The last three lines are the kernels' JSON, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+The last three lines are the kernels' JSON (each kernel's phase-12 numbers
+under ``fullsize``), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -267,6 +288,22 @@ def corpus_encode(job):
     seed, quality = job
     return corpus.own_jpeg(corpus.synthetic_rgb(256, 256, seed=seed), subsampling="4:2:0",
                            quality=quality, restart_interval=1).data
+
+
+def fullsize_build(name):
+    """One of the four full-size frames of phase 12 (testing/fullsize.py),
+    built in a worker process beside the checks: (bytes, build seconds on
+    one core, the CPU port's decodes of them, fullsize.cpu_reference)."""
+    import torch as t
+
+    from jpeg_gpu_tpu_torch.testing import fullsize
+
+    t.set_num_threads(1)
+    t0 = time.perf_counter()
+    data = fullsize.build(name)
+    seconds = time.perf_counter() - t0
+    t.set_num_threads(2)
+    return data, seconds, fullsize.cpu_reference(data)
 
 
 # What each stage of engine/batch.py's _decode_bucket_device does, by the
@@ -690,6 +727,187 @@ def fuzz_phase(kernels, card: str, seed: int):
     return by_kernel
 
 
+# Phase 12: the decodes whose kernel calls are timed on each full-size frame,
+# the wrapper of each kernel as the engine calls it, and the profiler's
+# kernel names of K1..K6.
+FULLSIZE_TIMED = ("device nearest", "auto fancy", "device yuv", "pack fancy", "device float")
+WRAPPERS = ((0, "pixel_fused", "decode_rgb_fused_soa"),
+            (1, "entropy_device", "decode_segments_device"),
+            (1, "entropy_device", "decode_mcus_at_bitpos"),
+            (2, "specsync_device", "device_index_scan"),
+            (3, "pack_device", "expand_pack_device"),
+            (4, "idct_islow_plane", "dequant_idct_islow_planes_soa"),
+            (5, "idct_float", "dequant_idct_float_planes_soa"))
+KERNEL_NAMES = (("fused_rgb_kernel",), ("decode_kernel", "dc_base_kernel"), ("index_scan_kernel",),
+                ("pack_expand_kernel",), ("idct_islow_planes_kernel",),
+                ("idct_float_planes_kernel",))
+FULLSIZE_BUDGET_S = 120
+
+
+def fullsize_bounds(data: bytes) -> dict:
+    """Each kernel's bound (K1..K6 by name) for its work on this frame: the
+    bytes it must move (inputs read once, outputs written once) and its
+    operations, as phase 8 counts them -- the coefficients and the pixels or
+    planes for K1, K5, K6; the segments' destuffed words and tables in, the
+    coefficients and flags out, and a Huffman symbol as 10 operations for
+    K2's row form; the windows in and the coefficients out for its fused
+    form; the windows in and an offset per MCU out for K3; the pack rows in
+    and the zero-filled output for K4."""
+    from jpeg_gpu_tpu_torch.engine import device_entropy
+    from jpeg_gpu_tpu_torch.host import entropy_native, segments
+    from jpeg_gpu_tpu_torch.host.pack_plan import build_pack_plan
+    from jpeg_gpu_tpu_torch.host.parser import parse
+
+    parsed = parse(data)
+    hdr = parsed.header
+    blocks = sum(c.vblocks * c.hblocks for c in hdr.components)
+    coef_bytes, qt_bytes, pixels = blocks * 64 * 2, len(hdr.components) * 64 * 4, hdr.height * hdr.width
+    scan = entropy_native.decode_scan(parsed, want_pack=True)
+    symbol_ops = symbol_count(scan.coefs) * HUFFMAN_OPS_PER_SYMBOL
+    out = {"K1": bound(coef_bytes + qt_bytes + 3 * pixels,
+                       blocks * ISLOW_OPS_PER_BLOCK + pixels * COLOUR_OPS_PER_PIXEL)}
+    if hdr.restart_interval:
+        plan = segments.build_plan(parsed)
+        out["K2"] = bound(k2_bytes([parsed], plan.n_segments, plan.comp_of_step.size,
+                                   plan.kernel_tables), symbol_ops)
+    else:
+        inp = segments.build_spec_scan_input(parsed, sb_target=device_entropy.SCAN_SB_TARGET)
+        maps = inp.comp_of_step.nbytes + inp.dc_slot_of_step.nbytes + inp.ac_slot_of_step.nbytes
+        out["K2"] = bound(inp.windows.nbytes + 4 * inp.n_mcus + maps + coef_bytes + 4 * inp.n_mcus,
+                          symbol_ops)
+        out["K3"] = bound(inp.windows.nbytes + inp.dcslot_of_c.nbytes + inp.acslot_of_c.nbytes
+                          + 4 * inp.n_mcus, symbol_ops)
+    pack = build_pack_plan(parsed, scan)
+    out["K4"] = bound(pack.streams.nbytes
+                      + pack.streams.shape[0] * pack.blocks_per_segment * 64 * 1024 * 2,
+                      pack.packed_entries * PACK_OPS_PER_ENTRY)
+    out["K5"] = bound(coef_bytes + qt_bytes + blocks * 64, blocks * ISLOW_OPS_PER_BLOCK)
+    out["K6"] = bound(coef_bytes + qt_bytes + blocks * 64, blocks * FLOAT_OPS_PER_BLOCK)
+    return out
+
+
+def captured_calls(fn) -> list:
+    """fn() with every kernel wrapper of WRAPPERS spied on: each call as
+    (kernel index, wrapper name, the wrapper, args, kwargs), in call order;
+    the arguments are the engine's own tensors on the card."""
+    import importlib
+
+    calls, restore = [], []
+    for k, mod_name, attr in WRAPPERS:
+        mod = importlib.import_module(f"jpeg_gpu_tpu_torch.ops.{mod_name}")
+        real = getattr(mod, attr)
+
+        def spy(*a, _k=k, _attr=attr, _real=real, **kw):
+            calls.append((_k, _attr, _real, a, kw))
+            return _real(*a, **kw)
+
+        setattr(mod, attr, spy)
+        restore.append((mod, attr, real))
+    try:
+        fn()
+    finally:
+        for mod, attr, real in restore:
+            setattr(mod, attr, real)
+    return calls
+
+
+def launch_device_ms(fn, names, per_call: int, iters: int = 5):
+    """Device time of the kernels of one fn() call whose names hold one of
+    ``names`` (``per_call`` launches a call), from torch.profiler's device
+    events over ``iters`` calls after a warm-up call: (ms a call, the
+    launches recorded).  On the H100 machines tried, the profiler dropped
+    records of these kernels in some windows, so a window counts only when
+    it recorded every launch, and up to three are taken; otherwise the time
+    is None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    recorded = 0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if any(n in e.key for n in names)]
+        recorded = sum(e.count for e in rows)
+        if recorded == iters * per_call:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / iters, recorded
+    return None, recorded
+
+
+def fullsize_phase(kernels, card: str, jobs: dict, stage_split) -> dict:
+    """Phase 12: BASELINE configs 3 and 5 at their published sizes
+    (testing/fullsize.py).  The four frames (built by the worker processes
+    with the CPU port's decodes of them) through every path of
+    ``fullsize.run`` on the card, each sha256 held to the manifest first and
+    each output to the JAX package's checksum, the CPU port's decode and,
+    fancy, libjpeg's; then the entropy="device" stage split of the 8K frames
+    and each kernel's device time beside its bound at these shapes.
+    Returns the counted launches and, per kernel, its numbers by frame and
+    path."""
+    import jpeg_gpu_tpu_torch as jt
+    from jpeg_gpu_tpu_torch.testing import fullsize
+
+    t0 = time.perf_counter()
+    built = {name: job.result() for name, job in jobs.items()}
+    print(f"fullsize: waited {time.perf_counter() - t0} s for the worker processes")
+    for name, (data, seconds, _) in built.items():
+        print(f"fullsize {name}: built in {seconds} s on one core of a worker process, "
+              f"{len(data)} B  [{card}]")
+    report = fullsize.run("cuda", frames={n: b[0] for n, b in built.items()},
+                          cpu={n: b[2] for n, b in built.items()}, reps=3)
+    assert report["ok"], report["failures"]
+    for name, rec in report["frames"].items():
+        mpix = rec["facts"]["height"] * rec["facts"]["width"] / 1e6
+        for path, p in rec["paths"].items():
+            print(f"fullsize {name} {path}: best of 3 {min(p['ms'])} ms ({mpix / min(p['ms']) * 1e3} "
+                  f"Mpix/s), peak {p['peak_bytes'] / 2**20} MiB, launches {p['launches']} "
+                  f"(K1..K6)  [{card}]")
+        if "scan" in rec:
+            stats = rec["paths"]["device nearest"]["specsync_stats"]
+            print(f"fullsize {name} index scan: {stats[0]} rounds, {rec['scan']['lanes']} lanes "
+                  f"of {rec['scan']['subseq_bytes']} bytes, windows {rec['scan']['windows']}, "
+                  f"records {stats[1]}, overflow {stats[2]}; no fallback on any path")
+    for name in ("8k-420-r0", "8k-420-r1"):
+        split = stage_split(built[name][0], 3)
+        print(f"entropy='device' stages, {name}, host clock with a sync after each stage, mean "
+              f"of 3  [{card}]:")
+        for stage, ms in split.items():
+            print(f"  {stage}: {ms} ms")
+        print(f"  sum: {sum(split.values())} ms")
+    # Each kernel call of a decode, with the engine's inputs at this size:
+    # CUDA events around 20 back-to-back calls of its wrapper, and the
+    # kernels' own time from torch.profiler over 5 (launch_device_ms).
+    by_kernel = [{} for _ in kernels]
+    for name, (data, _, _) in built.items():
+        bounds = fullsize_bounds(data)
+        for path, kw, stage in (p for p in fullsize.PATHS if p[0] in FULLSIZE_TIMED):
+            calls = captured_calls(
+                lambda: jt.get_decoder(data, device="cuda", **kw).decode(stage))
+            launched = report["frames"][name]["paths"][path]["launches"]
+            for k, attr, real, a, kwa in calls:
+                call = lambda: real(*a, **kwa)  # noqa: E731
+                call()
+                ms = [cuda_ms(call, 20), cuda_ms(call, 20)]
+                # K2's fused form is two kernels: the decode and the DC predictors.
+                per_call = 2 if attr == "decode_mcus_at_bitpos" else 1
+                dev_ms, recorded = launch_device_ms(call, KERNEL_NAMES[k], per_call)
+                b = bounds[f"K{k + 1}"]
+                by_kernel[k][f"{name} {path}"] = {
+                    "ms": sum(ms) / 2, "device_ms": dev_ms, "bound_ms": b["bound_ms"],
+                    "bound_by": b["bound_by"], "launches": launched[k]}
+                print(f"fullsize {name} {path}: K{k + 1} ({attr}) kernel {sum(ms) / 2} ms runs "
+                      f"{ms} by events, device {dev_ms} ms a call (profiler; {recorded} of "
+                      f"{5 * per_call} launches recorded in its last window); {bound_text(b)}  "
+                      f"[{card}]")
+    wall = time.perf_counter() - t0
+    print(f"phase 12: launches {report['launches']} (K1..K6), fullsize.run {report['seconds']} s, "
+          f"{wall} s wall (budget {FULLSIZE_BUDGET_S} s: "
+          f"{'within' if wall <= FULLSIZE_BUDGET_S else 'OVER'})")
+    return {"launches": report["launches"], "by_kernel": by_kernel}
+
+
 def verdict_order(data: bytes, card: str, reps: int = 20) -> None:
     """What reading the index scan's verdict before K2 costs: K3 -> ok and
     stats to the host in one copy -> K2's fused form (the engine's order),
@@ -830,7 +1048,7 @@ def main() -> int:
     from jpeg_gpu_tpu_torch.ops import idct as idct_ops
     from jpeg_gpu_tpu_torch.ops.block_plane import blocks_as_soa
     from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
-    from jpeg_gpu_tpu_torch.testing import corpus, pack_cases, scan_cases
+    from jpeg_gpu_tpu_torch.testing import corpus, fullsize, pack_cases, scan_cases
     from jpeg_gpu_tpu_torch.testing.encoder import _M as DCT_BASIS_F64
     from jpeg_gpu_tpu_torch.testing.specsync_artifact import device_ms
     from jpeg_gpu_tpu_torch.testing.sweep import card_line
@@ -883,6 +1101,8 @@ def main() -> int:
     # qualities 70-95), each with its own Huffman and quant tables.
     corpus_jobs = [(100 + k, 70 + (25 * k) // 31) for k in range(32)]
     corpus_data = [sweep_pool.submit(corpus_encode, job) for job in corpus_jobs]
+    # Phase 12's full-size frames (BASELINE configs 3 and 5) and their CPU decodes.
+    fullsize_jobs = {f.name: sweep_pool.submit(fullsize_build, f.name) for f in fullsize.FRAMES}
     sweep_pool.shutdown(wait=False)   # the workers end with their last job
 
     def soa_inputs(images, mode, upsample):
@@ -2377,6 +2597,12 @@ def main() -> int:
     main_launches = [a + b for a, b in zip(main_launches, fuzz_launches)]
 
     phase_done(11)
+    # -- 12. BASELINE configs 3 and 5 at their published sizes ---------------
+    full = fullsize_phase(kernels, card, fullsize_jobs, stage_split)
+    main_launches = [a + b for a, b in zip(main_launches, full["launches"])]
+
+    phase_done(12)
+
     def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None, **more):
         return {
             "name": stem,
@@ -2390,6 +2616,7 @@ def main() -> int:
             "bound_ms": b["bound_ms"],
             "bound_by": b["bound_by"],
             "library_ms": library_ms,
+            "fullsize": full["by_kernel"][i],
             **more,
         }
 

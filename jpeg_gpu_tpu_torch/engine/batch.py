@@ -36,7 +36,7 @@ import torch
 
 from jpeg_gpu_tpu_torch.engine import pipeline
 from jpeg_gpu_tpu_torch.engine.decoder import _numpy
-from jpeg_gpu_tpu_torch.engine.device_entropy import check_one_segment
+from jpeg_gpu_tpu_torch.engine.device_entropy import check_scan_fits
 from jpeg_gpu_tpu_torch.engine.pipeline import PipelineSpec
 from jpeg_gpu_tpu_torch.errors import JpegFormatError, JpegUnsupportedError
 from jpeg_gpu_tpu_torch.host.parser import ParsedJpeg, parse
@@ -95,7 +95,7 @@ def _entropy_decode(parsed: ParsedJpeg, soa: bool):
     native decoder writes them, else as (vb, hb, 8, 8) blocks."""
     from jpeg_gpu_tpu_torch.host import entropy, entropy_native
 
-    check_one_segment(parsed)
+    check_scan_fits(parsed)
     if entropy_native.available():
         return entropy_native.decode_scan(parsed, soa=soa)
     return entropy.decode_scan(parsed)
@@ -199,15 +199,15 @@ def _decode_bucket_sharded(spec: PipelineSpec, arrays, qtables: np.ndarray, mesh
 
 def _device_buckets(datas, exact, upsample):
     """Parse and plan every image: buckets by (geometry, restart structure),
-    and the indices of the images the device planner rejects.  A stream of
-    one segment too short for the frame its SOF claims raises
-    JpegFormatError naming the image (``device_entropy.check_one_segment``)
+    and the indices of the images the device planner rejects.  A stream too
+    short for the frame its SOF claims raises
+    JpegFormatError naming the image (``device_entropy.check_scan_fits``)
     before anything is sized by that frame."""
     buckets: Dict[Tuple, _Bucket] = {}
     fallback: List[int] = []
     for i, data in enumerate(datas):
         parsed = parse(data)
-        check_one_segment(parsed, f"image {i}")
+        check_scan_fits(parsed, f"image {i}")
         try:
             plan = build_plan(parsed)
         except JpegUnsupportedError:

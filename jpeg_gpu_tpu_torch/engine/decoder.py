@@ -125,12 +125,12 @@ class Decoder:
 
     def _host_parse(self) -> ParsedJpeg:
         """The parsed stream for a host entropy decode, which sizes its
-        coefficients by the frame: a stream of one segment too short for
-        that frame raises first (device_entropy.check_one_segment)."""
-        from jpeg_gpu_tpu_torch.engine.device_entropy import check_one_segment
+        coefficients by the frame: a stream too short for that frame raises
+        first (device_entropy.check_scan_fits)."""
+        from jpeg_gpu_tpu_torch.engine.device_entropy import check_scan_fits
 
         parsed = self._parse()
-        check_one_segment(parsed)
+        check_scan_fits(parsed)
         return parsed
 
     def _entropy(self, want_pack: bool = False) -> host_entropy.ScanResult:

@@ -159,24 +159,25 @@ def _scan_geometry(header) -> Tuple[Tuple[int, int], ...]:
     )
 
 
-def check_one_segment(parsed: ParsedJpeg, what: str = "the stream") -> None:
-    """Raise JpegFormatError for a stream of one entropy-coded segment (no
-    restart markers, or an interval longer than the frame) whose bytes
-    cannot hold the starts of its frame's MCUs (:func:`mcu_starts_fit`,
-    counted before destuffing, so never short of the truth).  Its decode
-    could only fail: the serial index scan and the host decode run out of
-    bits (the error the reference raises), and K2 would flag the segment.
-    But a plan of that segment would size K2's output by the frame its SOF
-    claims, every block step of it in one lane's row, so the stream is
-    refused before that."""
-    if len(parsed.segments) != 1:
-        return
-    start, end = (int(x) for x in parsed.segments[0])
+def check_scan_fits(parsed: ParsedJpeg, what: str = "the stream") -> None:
+    """Raise JpegFormatError for a stream whose entropy-coded bytes, all its
+    segments together, cannot hold its frame's MCUs (:func:`mcu_starts_fit`
+    over their sum, counted before destuffing, so never short of the truth).
+    Every MCU takes at least two bits a block inside its own segment, so
+    this holds whatever the segment count.  Such a decode could only fail:
+    the serial index scan and the host decode run out of bits (the error the
+    reference raises), and K2 would flag the segments.  But the host's
+    coefficient arrays and every plan are sized by the frame its SOF claims,
+    and a plan's rows by the restart interval (a DRI of 65535 on two
+    segments of a claimed 131070-MCU frame: 51 GB of K2 output), so the
+    stream is refused before any of them."""
+    spans = parsed.segments[:, 1] - parsed.segments[:, 0]
+    n_bytes = int(spans.sum())
     bpm = sum(hs * vs for hs, vs in _scan_geometry(parsed.header))
-    if not mcu_starts_fit(8 * (end - start), parsed.header.n_mcus, bpm):
+    if not mcu_starts_fit(8 * n_bytes, parsed.header.n_mcus, bpm):
         raise JpegFormatError(
-            f"{what}: its {end - start} bytes of scan cannot hold the frame's "
-            f"{parsed.header.n_mcus} MCUs")
+            f"{what}: its {n_bytes} bytes of scan in {len(spans)} segment(s) cannot hold "
+            f"the frame's {parsed.header.n_mcus} MCUs")
 
 
 def _raise_on_segment_flags(err: torch.Tensor, n_segments: int, kind: str) -> None:
@@ -218,6 +219,7 @@ def entropy_decode_device(
         raise ValueError(f"on_error must be 'raise' or 'zero', got {on_error!r}")
     device = resolve_device(device, "entropy_decode_device")
     header = parsed.header
+    check_scan_fits(parsed)
     spec_result = None
     if (
         specsync
@@ -231,7 +233,6 @@ def entropy_decode_device(
         kernel_out, err, spec_stats = spec_result
         plan_nseg, plan_mps = header.n_mcus, 1
     else:
-        check_one_segment(parsed)
         plan = build_plan_auto(parsed)
         plan_nseg, plan_mps = plan.n_segments, plan.mcus_per_segment
         tabs = device_tables(plan.cbase, plan.counts, plan.symbols, device, scan=False)
@@ -371,6 +372,7 @@ def decode_image_device_sharded(
     from jpeg_gpu_tpu_torch.parallel.mesh import DATA_AXIS
 
     header = parsed.header
+    check_scan_fits(parsed)
     if specsync is None:
         specsync = True
     if (
@@ -382,7 +384,6 @@ def decode_image_device_sharded(
         rgb = _spec_decode_sharded_try(parsed, mesh, exact, upsample, check_errors)
         if rgb is not None:
             return rgb
-    check_one_segment(parsed)
     plan = build_plan_auto(parsed)
     streams = plan.streams
     pad = (-streams.shape[0]) % mesh.shape[DATA_AXIS]

@@ -352,6 +352,25 @@ def claimed_frame_case(size: int = 16000) -> bytes:
     return bytes(buf)
 
 
+def two_segment_case() -> bytes:
+    """Two mutations at once, which one case of :func:`cases` never makes: a
+    32x16 4:2:0 frame with a restart marker after its first MCU (two
+    segments), its DRI raised to 65535 and its SOF claiming 41120x816, that
+    is 131070 MCUs or two intervals.  No single segment is refused, and a
+    plan of it sizes K2's output by the interval: 51 GB."""
+    from jpeg_gpu_tpu_torch.testing import corpus
+
+    enc = corpus.own_jpeg(corpus.synthetic_rgb(16, 32, seed=1), "4:2:0", quality=85,
+                          restart_interval=1)
+    buf = bytearray(enc.data)
+    segs = markers(enc.data)[0]
+    (s, _), = _find(segs, SOF0)
+    buf[s + 5:s + 9] = bytes([816 >> 8, 816 & 255, 41120 >> 8, 41120 & 255])
+    (d, _), = _find(segs, DRI)
+    buf[d + 4:d + 6] = bytes([0xFF, 0xFF])
+    return bytes(buf)
+
+
 # -- the runner ---------------------------------------------------------------
 
 def _single(path: str, data: bytes, device):

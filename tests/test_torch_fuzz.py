@@ -79,7 +79,8 @@ def outcome(path, data, valid):
 srcs = {s.name: s for s in fuzz.sources()}
 valid = srcs["own-420-r0"].data
 res = {}
-for name, data in (("16000", fuzz.claimed_frame_case()), ("65535", fuzz.claimed_frame_case(65535))):
+for name, data in (("16000", fuzz.claimed_frame_case()), ("65535", fuzz.claimed_frame_case(65535)),
+                   ("two-segment", fuzz.two_segment_case())):
     res[name] = {p: outcome(p, data, valid)[0] for p in fuzz.PATHS}
 # A DRI of 65535 before the SOS of a valid frame without restart markers:
 # still a valid stream, of one segment.
@@ -418,8 +419,19 @@ def test_claimed_frame_65535_raises_format_error_on_every_path(capped):
     """The same at 65535x65535, where the host entropy stage's coefficient
     arrays alone are 12 GB: a stream of one segment that cannot hold its
     frame raises before anything is sized by the frame
-    (device_entropy.check_one_segment)."""
+    (device_entropy.check_scan_fits)."""
     assert capped["65535"] == {p: "JpegFormatError" for p in fuzz.PATHS}
+
+
+def test_two_segments_of_a_claimed_frame_raise_format_error_on_every_path(capped):
+    """A DRI of 65535 on a stream of two segments whose SOF claims 131070
+    MCUs (two mutations at once): no single segment is too short, so the
+    one-segment test let it through, and entropy="device", the corpus paths
+    and mesh= sized K2's output by the interval (51 GB), the host entropy
+    stage its coefficients by the frame.  The bits of all the segments
+    together are held to the frame's MCUs now
+    (device_entropy.check_scan_fits), before any plan or allocation."""
+    assert capped["two-segment"] == {p: "JpegFormatError" for p in fuzz.PATHS}
 
 
 def test_interval_longer_than_frame_decodes(capped):

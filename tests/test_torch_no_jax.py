@@ -148,3 +148,27 @@ def test_port_imports_no_jax(upsample, entropy, extra):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+FULLSIZE = """
+import sys
+from jpeg_gpu_tpu_torch.testing import fullsize
+f = fullsize.BY_NAME["4k-444-r1"]
+data = fullsize.build(f.name, f.reduced)
+ref = fullsize.cpu_reference(data)
+assert set(ref) == {*fullsize.KINDS, "float"}, ref
+assert fullsize.load_manifest()["frames"][f.name]["mcus"] == 129600
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jpeg_gpu_tpu.")))
+print("LEAKED", leaked)
+assert not leaked, leaked
+"""
+
+
+def test_fullsize_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", FULLSIZE], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
