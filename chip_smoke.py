@@ -217,11 +217,30 @@
    stage split of the 8K frames and each kernel's device time from
    torch.profiler beside its bound at these shapes; the phase's wall time
    against its budget of 120 s.
+13. The port's bench (``jpeg_gpu_tpu_torch.bench.run("cuda")``, the rows of
+   the root bench.py) with fewer repetitions than its own run: the 1080p
+   frames of phase 3 and 4 and phase 12's 8K frame where they are the
+   bench's, the rest encoded by the worker processes from phase 1 on, each
+   with the CPU port's decode.  The pixel stage (K1, batch 8, nearest and
+   fancy), the full device decodes of restart-marked frames (K2's row form
+   with its table kernel, then K1, or K5 for 512 gray; 1080p batch 8, 4K
+   4:2:2 batch 2, gray batch 32, 8K nearest and fancy), the two serving
+   loops (a producer thread plans and uploads frame N+1 on its own stream
+   while frame N decodes; R=1 24 frames, without restart markers 12 frames
+   through K3 -> K2's fused form -> K1) with their host and host+upload
+   floors, host entropy, the 64-image corpus resident and with the
+   download, and the host<->device bandwidth.  Each row's output is held
+   once, outside its timed window, to the CPU port's decode of the same
+   bytes; a failed gate, a flag or a frame that left the device index scan
+   ends the run.  The bench's JSON line is printed on a line of its own, the
+   phase's launches go to the kernels line, and its wall time is printed
+   against its budget of 120 s.
 
 Images come from the package's own baseline encoder, seeded.  Any failure
 raises and exits non-zero; without a CUDA device it exits non-zero at once.
 The last three lines are the kernels' JSON (each kernel's phase-12 numbers
-under ``fullsize``), the card's name and power limit, and ``{"ok": true,
+under ``fullsize``, its device time in each bench row of phase 13 under
+``bench_device_ms``), the card's name and power limit, and ``{"ok": true,
 "device": {...}}``.
 """
 
@@ -241,6 +260,8 @@ import time
 
 import numpy as np
 import torch
+
+from jpeg_gpu_tpu_torch.testing.timing import cuda_ms, device_ms, launch_device_ms
 
 GEOMETRIES = [("4:4:4", 1, 1), ("4:2:2", 2, 1), ("4:2:0", 2, 2),
               ("4:4:0", 1, 2), ("4:1:1", 4, 1)]
@@ -811,31 +832,6 @@ def captured_calls(fn) -> list:
     return calls
 
 
-def launch_device_ms(fn, names, per_call: int, iters: int = 5):
-    """Device time of the kernels of one fn() call whose names hold one of
-    ``names`` (``per_call`` launches a call), from torch.profiler's device
-    events over ``iters`` calls after a warm-up call: (ms a call, the
-    launches recorded).  On the H100 machines tried, the profiler dropped
-    records of these kernels in some windows, so a window counts only when
-    it recorded every launch, and up to three are taken; otherwise the time
-    is None."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    recorded = 0
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if any(n in e.key for n in names)]
-        recorded = sum(e.count for e in rows)
-        if recorded == iters * per_call:
-            return sum(e.self_device_time_total for e in rows) / 1e3 / iters, recorded
-    return None, recorded
-
-
 def fullsize_phase(kernels, card: str, jobs: dict, stage_split) -> dict:
     """Phase 12: BASELINE configs 3 and 5 at their published sizes
     (testing/fullsize.py).  The four frames (built by the worker processes
@@ -892,7 +888,7 @@ def fullsize_phase(kernels, card: str, jobs: dict, stage_split) -> dict:
                 ms = [cuda_ms(call, 20), cuda_ms(call, 20)]
                 # K2's fused form is two kernels: the decode and the DC predictors.
                 per_call = 2 if attr == "decode_mcus_at_bitpos" else 1
-                dev_ms, recorded = launch_device_ms(call, KERNEL_NAMES[k], per_call)
+                dev_ms, recorded, _ = launch_device_ms(call, KERNEL_NAMES[k], per_call)
                 b = bounds[f"K{k + 1}"]
                 by_kernel[k][f"{name} {path}"] = {
                     "ms": sum(ms) / 2, "device_ms": dev_ms, "bound_ms": b["bound_ms"],
@@ -906,6 +902,79 @@ def fullsize_phase(kernels, card: str, jobs: dict, stage_split) -> dict:
           f"{wall} s wall (budget {FULLSIZE_BUDGET_S} s: "
           f"{'within' if wall <= FULLSIZE_BUDGET_S else 'OVER'})")
     return {"launches": report["launches"], "by_kernel": by_kernel}
+
+
+# Phase 13: the bench on the card, with fewer repetitions than its own run.
+BENCH_BUDGET_S = 120
+# The kernels of csrc/*.cu by the K they belong to (each kernel's table
+# kernel with it).
+BENCH_KERNELS = {"fused_rgb_kernel": 0, "decode_kernel": 1, "dc_base_kernel": 1,
+                 "symbol_lut_kernel": 1, "index_scan_kernel": 2, "scan_lut_kernel": 2,
+                 "pack_expand_kernel": 3, "idct_islow_planes_kernel": 4,
+                 "idct_float_planes_kernel": 5}
+
+
+def bench_phase(kernels, card: str, jobs: dict, have: dict):
+    """Phase 13: ``jpeg_gpu_tpu_torch.bench.run`` on the card, its inputs the
+    frames the earlier phases built where they are the bench's (1080p 4:2:0
+    with a restart marker every MCU and without, the 8K frame of phase 12,
+    each with the CPU port's decode) and the rest from the worker processes.
+    Every row holds its output once, outside its timed window, to the CPU
+    port's decode of the same bytes; a failed gate, a flag or a frame of the
+    loop without restart markers that left the device index scan raises.
+    Prints the bench's JSON line on a line of its own; returns it and the
+    phase's launches (K1..K6)."""
+    from jpeg_gpu_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    inputs = bench.gather_inputs({**jobs, **have})
+    print(f"bench: waited {time.perf_counter() - t0} s for the worker processes")
+    for mod in kernels:
+        mod.launches = 0
+    line = bench.run("cuda", inputs, iters=20, loop_reps=2, host_reps=2, corpus_reps=2)
+    torch.cuda.synchronize()
+    launches = [mod.launches for mod in kernels]
+    detail = line["detail"]
+    assert detail["e2e_no_dri_impl"] == "device_specsync", detail["e2e_no_dri_impl"]
+    assert detail["launches"] == launches, (detail["launches"], launches)
+    # K1, K2, K3 and K5 are on the bench's paths; K4 and K6 are not.
+    assert all(launches[k] > 0 for k in (0, 1, 2, 4)) and launches[3] == launches[5] == 0, \
+        launches
+    print(json.dumps(line))
+    for key, row in detail["device_rows"].items():
+        print(f"bench {key}: {row['mpix_per_s']} Mpix/s, batch {row['batch']}, {row['ms']} ms a "
+              f"call by {row['clock']}, kernels' device time {row['device_ms']} ms a call, by "
+              f"kernel ms a launch {row['kernels_ms_a_launch']} (launches recorded "
+              f"{row['kernels_launches_recorded']} of {row['launches_profiled']}), launches a "
+              f"call {row['launches']}  [{card}]")
+    for key, row in detail["host_rows"].items():
+        print(f"bench {key}: runs {row['runs_mpix_per_s']} Mpix/s; "
+              + ", ".join(f"{k} {v}" for k, v in row.items() if k != "runs_mpix_per_s")
+              + f"  [{card}]")
+    print(f"bench bandwidth: {detail['bandwidth']}  [{card}]")
+    wall = time.perf_counter() - t0
+    print(f"phase 13: launches {launches} (K1..K6), bench.run {detail['seconds']} s, {wall} s "
+          f"wall (budget {BENCH_BUDGET_S} s: {'within' if wall <= BENCH_BUDGET_S else 'OVER'})")
+    return line, launches
+
+
+def bench_kernel_ms(line: dict, k: int) -> dict:
+    """The device ms of kernel K<k+1> (with its table kernel) in each row of
+    the bench's line: a launch in the device rows and the corpus (each
+    kernel launches once a call there), a frame in each serving loop."""
+    out = {}
+    rows = [(key, row["kernels_ms_a_launch"]) for key, row in line["detail"]["device_rows"].items()]
+    rows += [("corpus_device_resident_mpix_per_s",
+              line["detail"]["host_rows"]["corpus_device_resident_mpix_per_s"]["kernels_ms_a_launch"])]
+    rows += [(key, row["device_ms_per_frame_by_name"] or {})
+             for key, row in line["detail"]["host_rows"].items()
+             if "device_ms_per_frame_by_name" in row]
+    for key, by_name in rows:
+        ms = sum(v for name, v in by_name.items()
+                 if any(n in name and BENCH_KERNELS[n] == k for n in BENCH_KERNELS))
+        if ms:
+            out[key] = ms
+    return out
 
 
 def verdict_order(data: bytes, card: str, reps: int = 20) -> None:
@@ -953,18 +1022,6 @@ def verdict_order(data: bytes, card: str, reps: int = 20) -> None:
           f"1080p 4:2:0, host clock, best of {2 * reps} in turns: {min(runs[True])} / "
           f"{min(runs[False])} ms (medians {float(np.median(runs[True]))} / "
           f"{float(np.median(runs[False]))})  [{card}]")
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn() over ``iters`` back-to-back launches."""
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def nbytes(*tensors) -> int:
@@ -1035,7 +1092,7 @@ def main() -> int:
         return 1
 
     import jpeg_gpu_tpu_torch as jt
-    from jpeg_gpu_tpu_torch import cuda_build
+    from jpeg_gpu_tpu_torch import bench, cuda_build
     from jpeg_gpu_tpu_torch.engine import device_entropy, pipeline
     from jpeg_gpu_tpu_torch.host import entropy_native, segments
     from jpeg_gpu_tpu_torch.host.pack_plan import build_pack_plan
@@ -1050,7 +1107,6 @@ def main() -> int:
     from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
     from jpeg_gpu_tpu_torch.testing import corpus, fullsize, pack_cases, scan_cases
     from jpeg_gpu_tpu_torch.testing.encoder import _M as DCT_BASIS_F64
-    from jpeg_gpu_tpu_torch.testing.specsync_artifact import device_ms
     from jpeg_gpu_tpu_torch.testing.sweep import card_line
 
     dev = torch.device("cuda")
@@ -1103,6 +1159,10 @@ def main() -> int:
     corpus_data = [sweep_pool.submit(corpus_encode, job) for job in corpus_jobs]
     # Phase 12's full-size frames (BASELINE configs 3 and 5) and their CPU decodes.
     fullsize_jobs = {f.name: sweep_pool.submit(fullsize_build, f.name) for f in fullsize.FRAMES}
+    # Phase 13's inputs that the earlier phases do not build, with the CPU
+    # port's decodes of them.
+    bench_jobs = {name: sweep_pool.submit(bench._input_job, job)
+                  for name, job in bench.input_jobs(have=("r1", "r0", "k8")).items()}
     sweep_pool.shutdown(wait=False)   # the workers end with their last job
 
     def soa_inputs(images, mode, upsample):
@@ -2602,6 +2662,20 @@ def main() -> int:
     main_launches = [a + b for a, b in zip(main_launches, full["launches"])]
 
     phase_done(12)
+    # -- 13. the bench on the card --------------------------------------------
+    k8_data, _, k8_cpu = fullsize_jobs[bench.K8].result()
+    have = {
+        "r1": bench.Frame(data1080r, {"nearest": fullsize.checksum(
+            cpu_decode(data1080r, upsample="nearest"))}),
+        "r0": bench.Frame(data1080, {"nearest": fullsize.checksum(
+            cpu_decode(data1080, upsample="nearest"))}),
+        "k8": bench.Frame(k8_data, {"nearest": k8_cpu["rgb-nearest"],
+                                    "fancy": k8_cpu["rgb-fancy"]}),
+    }
+    bench_line, bench_launches = bench_phase(kernels, card, bench_jobs, have)
+    main_launches = [a + b for a, b in zip(main_launches, bench_launches)]
+
+    phase_done(13)
 
     def entry(i, stem, replaces, err, ms, plain_ms, b, library_ms=None, **more):
         return {
@@ -2617,6 +2691,7 @@ def main() -> int:
             "bound_by": b["bound_by"],
             "library_ms": library_ms,
             "fullsize": full["by_kernel"][i],
+            "bench_device_ms": bench_kernel_ms(bench_line, i),
             **more,
         }
 

@@ -222,25 +222,31 @@ def _device_buckets(datas, exact, upsample):
     return list(buckets.values()), fallback
 
 
-def _decode_bucket_device(
-    bucket: _Bucket, on_error: str, device, mark: Optional[Callable[[str], None]] = None
-):
-    """One bucket on ``device``: the bits and tables up in one copy, one K2
-    launch for every image's segments (a Huffman table set per image, their
-    symbol tables built in one launch), one assembly, one pixel call.
-    Returns (rgb (NI, H, W, 3) uint8, err_img (NI,) int32), both on the
-    device: an image's flag is the largest of its real segments' flags.
-
-    ``mark``, where given, is called with each stage's name once the stage
-    is issued: a caller that times the stages synchronizes there."""
-    mark = mark or (lambda stage: None)
-    hdr = bucket.parsed[0].header
+def _upload_bucket(bucket: _Bucket, device, mark: Callable[[str], None] = lambda stage: None):
+    """The host half of a bucket's device decode: its corpus plan, then the
+    bits, maps, Huffman and quant tables up in one pinned copy.  Returns
+    (corpus plan, tensors on ``device``) for :func:`_decode_uploaded_bucket`."""
     corpus_plan = build_corpus_plan(bucket.plans)
-    ni, b1 = corpus_plan.n_images, corpus_plan.batches_per_image
     mark("corpus plan")
-    streams, *tables, qtables = plan_tensors(
+    tensors = plan_tensors(
         (corpus_plan.streams, *corpus_plan.kernel_tables, _qtables(bucket.parsed)), device)
     mark("upload")
+    return corpus_plan, tensors
+
+
+def _decode_uploaded_bucket(
+    bucket: _Bucket, corpus_plan, tensors, on_error: str,
+    mark: Callable[[str], None] = lambda stage: None,
+):
+    """The device half of a bucket's decode, on what :func:`_upload_bucket`
+    uploaded: one K2 launch for every image's segments (a Huffman table set
+    per image, their symbol tables built in one launch), one assembly, one
+    pixel call.  Returns (rgb (NI, H, W, 3) uint8, err_img (NI,) int32), both
+    on the device: an image's flag is the largest of its real segments'
+    flags.  Nothing is read back."""
+    hdr = bucket.parsed[0].header
+    ni, b1 = corpus_plan.n_images, corpus_plan.batches_per_image
+    streams, *tables, qtables = tensors
     out, err = entropy_device.decode_segments_device_multi(streams, *tables)
     if on_error == "zero":
         # Blank flagged segments: the damage stays inside the segment.
@@ -265,6 +271,18 @@ def _decode_bucket_device(
     err_img = err.reshape(ni, -1)[:, : corpus_plan.n_segments].amax(1)
     mark("flags")
     return rgb, err_img
+
+
+def _decode_bucket_device(
+    bucket: _Bucket, on_error: str, device, mark: Callable[[str], None] = lambda stage: None
+):
+    """One bucket on ``device``: :func:`_upload_bucket`, then
+    :func:`_decode_uploaded_bucket`.  Returns (rgb, err_img) on the device.
+
+    ``mark`` is called with each stage's name once the stage is enqueued: a
+    caller that times the stages synchronizes there."""
+    corpus_plan, tensors = _upload_bucket(bucket, device, mark)
+    return _decode_uploaded_bucket(bucket, corpus_plan, tensors, on_error, mark)
 
 
 def _decode_bucket_device_sharded(bucket: _Bucket, on_error: str, mesh):

@@ -4,7 +4,10 @@ The port of ``jpeg_gpu_tpu/engine/device_entropy.py``.  The host only
 parses markers and destuffs and packs the entropy bits (host/segments.py);
 the device runs the index scan for streams without restart markers (K3),
 the Huffman decode with its DC predictors (K2) and the assembly into the
-coefficient layouts the pixel pipeline consumes.  A table set's tensors and
+coefficient layouts the pixel pipeline consumes.  A frame's decode is a
+host half (:func:`plan_frame`, then :func:`upload_frame`) and a device half
+(:func:`decode_frame`), so that a serving loop can plan and upload frame
+N+1 on one thread while another decodes frame N.  A table set's tensors and
 the symbol tables K2 and K3 build from them stay on the card
 (:func:`device_tables`), so a frame uploads its bits and a few small maps in
 one copy.  For the PACK upload the
@@ -24,6 +27,7 @@ import torch
 from jpeg_gpu_tpu_torch.errors import JpegFormatError, JpegUnsupportedError
 from jpeg_gpu_tpu_torch.host.parser import ParsedJpeg
 from jpeg_gpu_tpu_torch.host.segments import (
+    DeviceScanPlan,
     SpecScanInput,
     build_plan_auto,
     build_spec_scan_input,
@@ -53,6 +57,7 @@ SCAN_SB_TARGET = 256
 class DeviceEntropyResult:
     coefs: Tuple[torch.Tensor, ...]  # per comp (vb, hb, 8, 8) int16, on the device
     err: torch.Tensor                # (B, 8, 128) int32 error flags
+    n_segments: int                  # the real (pseudo) segments: err's first n_segments
     # Runs through the device index scan only: (rounds, total_records,
     # overflowed) from the scan, for diagnostics.
     specsync_stats: Optional[np.ndarray] = None
@@ -106,51 +111,6 @@ def mcu_starts_fit(n_bits: int, n_mcus: int, bpm: int) -> bool:
     return n_bits > 0 and n_mcus <= (n_bits - 1) // (2 * bpm) + 1
 
 
-def _spec_decode_try(parsed: ParsedJpeg, device):
-    """Decode a stream without restart markers through the device index scan
-    (K3), then K2's fused form, which reads the scan's windows at the MCUs'
-    bit positions and applies the DC predictors.
-
-    Returns (kernel_out, err, stats) with the DC bases applied, or None
-    when the scan did not converge, overflowed its records, or the stream
-    is out of range: the caller then falls back to the serial host scan
-    (build_plan_auto), as the reference does.  A stream too short for its
-    frame (:func:`mcu_starts_fit`) is not scanned, since the scan cannot find its
-    MCUs; the scan's ``ok`` is read, with its stats in one copy, before K2
-    is enqueued or its output allocated, so K2 never runs on the bit
-    positions of a scan that failed."""
-    try:
-        inp = build_spec_scan_input(parsed, sb_target=SCAN_SB_TARGET)
-    except JpegUnsupportedError:
-        return None
-    if not mcu_starts_fit(inp.n_bits, inp.n_mcus, inp.bpm):
-        log.debug("%d scan bits cannot hold %d MCUs; serial index scan",
-                  inp.n_bits, inp.n_mcus)
-        return None
-    tabs = device_tables(inp.cbase, inp.counts, inp.symbols, device, scan=True)
-    windows, dcslot_c, acslot_c, comp_map, dcslot_map, acslot_map = plan_tensors(
-        (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
-         inp.dc_slot_of_step, inp.ac_slot_of_step), device
-    )
-    bitpos, ok, stats = specsync_device.device_index_scan(
-        windows, inp.n_bits, dcslot_c, acslot_c, tabs.cbase, tabs.counts, tabs.symbols,
-        sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus, lut=tabs.k3_lut,
-    )
-    verdict = torch.cat([stats, ok.reshape(1).to(stats.dtype)]).cpu().numpy()
-    stats = verdict[:3]
-    if not verdict[3]:
-        log.debug(
-            "device index scan did not converge (stats=%s); falling back "
-            "to the serial index scan", stats,
-        )
-        return None
-    out, err = entropy_device.decode_mcus_at_bitpos(
-        windows, bitpos, inp.n_bits, comp_map, dcslot_map, acslot_map,
-        tabs.cbase, tabs.counts, tabs.symbols, spw=inp.spw, lut=tabs.k2_lut,
-    )
-    return out, err, stats
-
-
 def _scan_geometry(header) -> Tuple[Tuple[int, int], ...]:
     """(hsamp, vsamp) of each scan component, in scan order."""
     return tuple(
@@ -189,6 +149,216 @@ def _raise_on_segment_flags(err: torch.Tensor, n_segments: int, kind: str) -> No
         )
 
 
+@dataclasses.dataclass
+class FramePlan:
+    """The host half of one frame's device entropy decode (:func:`plan_frame`):
+    the parse, and either the device index scan's input (``scan``: a stream
+    without restart markers) or the segment rows of ``build_plan_auto``
+    (``rows``: restart segments, or the serial scan's pseudo segments).
+    Exactly one of the two is set."""
+
+    parsed: ParsedJpeg
+    scan: Optional[SpecScanInput] = None
+    rows: Optional[DeviceScanPlan] = None
+
+
+@dataclasses.dataclass
+class UploadedFrame:
+    """A :class:`FramePlan` whose per-frame arrays are on ``device``, in one
+    copy (:func:`upload_frame`): for ``scan`` the windows and the slot and
+    step maps, for ``rows`` the streams, the step maps and the last
+    segment's meta, then the DC bases of pseudo segments.  The table set is
+    not among them: the device half finds it with :func:`device_tables`."""
+
+    plan: FramePlan
+    device: torch.device
+    tensors: Tuple[torch.Tensor, ...]
+
+
+def plan_frame(
+    parsed: ParsedJpeg,
+    specsync: bool = True,
+    nw: Optional[int] = None,
+    subseq_bytes: Optional[int] = None,
+) -> FramePlan:
+    """The host half of a frame's device entropy decode, with no device work:
+    the test that the scan can hold the frame (:func:`check_scan_fits`),
+    then the planner.  A stream without restart markers gets the device
+    index scan's input (destuffed window rows at ``SCAN_SB_TARGET`` bytes a
+    subsequence), unless ``specsync`` is False, ``build_spec_scan_input``
+    declines it, or its bits cannot hold the frame's MCU starts
+    (:func:`mcu_starts_fit`); every other stream the segment rows of
+    ``build_plan_auto``.
+
+    A serving loop pins the shapes of its first frame: ``nw`` (words per
+    segment row; skips the sizing pass) and ``subseq_bytes`` (the window
+    stride)."""
+    check_scan_fits(parsed)
+    header = parsed.header
+    if (
+        specsync
+        and not header.restart_interval
+        and len(parsed.segments) == 1
+        and header.n_mcus >= 2
+    ):
+        inp = _scan_input(parsed, nw, subseq_bytes)
+        if inp is not None:
+            return FramePlan(parsed, scan=inp)
+    return FramePlan(parsed, rows=build_plan_auto(parsed, nw=nw))
+
+
+def _scan_input(parsed: ParsedJpeg, nw=None, subseq_bytes=None) -> Optional[SpecScanInput]:
+    """The device index scan's input for a stream without restart markers,
+    or None where ``build_spec_scan_input`` declines it or its bits cannot hold the
+    frame's MCU starts (:func:`mcu_starts_fit`: the scan could not find
+    them)."""
+    kw = {"sb_target": SCAN_SB_TARGET}
+    if subseq_bytes is not None:
+        kw["subseq_bytes"] = subseq_bytes
+    if nw is not None:
+        kw["nw"] = nw
+    try:
+        inp = build_spec_scan_input(parsed, **kw)
+    except JpegUnsupportedError:
+        return None
+    if not mcu_starts_fit(inp.n_bits, inp.n_mcus, inp.bpm):
+        log.debug("%d scan bits cannot hold %d MCUs; serial index scan",
+                  inp.n_bits, inp.n_mcus)
+        return None
+    return inp
+
+
+def _scan_decode(frame: UploadedFrame):
+    """K3, then K2's fused form, which reads the scan's windows at the MCUs'
+    bit positions and applies the DC predictors: (kernel_out, err, stats),
+    or None when the scan did not converge or overflowed its records.  The
+    scan's ``ok`` is read, with its stats in one copy, before K2 is enqueued
+    or its output allocated, so K2 never runs on the bit positions of a scan
+    that failed."""
+    inp = frame.plan.scan
+    tabs = device_tables(inp.cbase, inp.counts, inp.symbols, frame.device, scan=True)
+    windows, dcslot_c, acslot_c, comp_map, dcslot_map, acslot_map = frame.tensors
+    bitpos, ok, stats = specsync_device.device_index_scan(
+        windows, inp.n_bits, dcslot_c, acslot_c, tabs.cbase, tabs.counts, tabs.symbols,
+        sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus, lut=tabs.k3_lut,
+    )
+    verdict = torch.cat([stats, ok.reshape(1).to(stats.dtype)]).cpu().numpy()
+    if not verdict[3]:
+        log.debug(
+            "device index scan did not converge (stats=%s); falling back "
+            "to the serial index scan", verdict[:3],
+        )
+        return None
+    out, err = entropy_device.decode_mcus_at_bitpos(
+        windows, bitpos, inp.n_bits, comp_map, dcslot_map, acslot_map,
+        tabs.cbase, tabs.counts, tabs.symbols, spw=inp.spw, lut=tabs.k2_lut,
+    )
+    return out, err, verdict[:3]
+
+
+def _spec_decode_try(parsed: ParsedJpeg, device):
+    """The device index scan's path alone for a stream without restart
+    markers: (kernel_out, err, stats) with the DC bases applied, or None
+    where the stream or its scan hands the frame to the serial host scan
+    (:func:`_scan_input`, :func:`_scan_decode`)."""
+    inp = _scan_input(parsed)
+    if inp is None:
+        return None
+    return _scan_decode(upload_frame(FramePlan(parsed, scan=inp), device))
+
+
+def _dc_base_rows(rows: DeviceScanPlan, nbatch: int) -> np.ndarray:
+    """The DC predictor bases the serial scan recorded for its pseudo
+    segments, one row per lane of ``nbatch`` segment batches: (nbatch, 8,
+    128, C) int32, zero past the last segment."""
+    dcb = np.zeros((nbatch * entropy_device.SLOTS, rows.dc_base.shape[1]), dtype=np.int32)
+    dcb[: rows.n_segments] = rows.dc_base
+    return dcb.reshape(nbatch, entropy_device.SUBLANES, entropy_device.LANES, -1)
+
+
+def upload_frame(plan: FramePlan, device=None) -> UploadedFrame:
+    """A frame's per-frame arrays to ``device`` in one pinned copy on the
+    current stream (``plan_tensors``).  ``device=None`` means "cuda" and
+    raises without a card."""
+    device = resolve_device(device, "upload_frame")
+    if plan.scan is not None:
+        inp = plan.scan
+        arrays = (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
+                  inp.dc_slot_of_step, inp.ac_slot_of_step)
+    else:
+        rows = plan.rows
+        arrays = (rows.streams,) + tuple(rows.kernel_tables[:4])
+        if rows.dc_base is not None:
+            arrays += (_dc_base_rows(rows, rows.streams.shape[0]),)
+    return UploadedFrame(plan, device, plan_tensors(arrays, device))
+
+
+def decode_frame(
+    frame: UploadedFrame,
+    soa: bool = False,
+    on_error: str = "raise",
+    check_errors: bool = True,
+) -> DeviceEntropyResult:
+    """The device half of a frame's entropy decode: K3 and K2's fused form on
+    a scan input (:func:`_scan_decode`: one host sync, the scan's verdict),
+    K2's row form on segment rows, then the assembly into coefficient
+    layouts.  The table set comes from :func:`device_tables`.
+
+    A scan that did not converge or overflowed its records hands the frame
+    to the serial host scan (``build_plan_auto``), as the reference does;
+    the result's ``specsync_stats`` is then None.
+
+    ``soa``, ``on_error`` and ``check_errors`` as in
+    :func:`entropy_decode_device`.  With ``check_errors=False`` nothing is
+    read back but the scan's verdict: a caller reduces the flags of
+    ``err[:n_segments]`` itself."""
+    if on_error not in ("raise", "zero"):
+        raise ValueError(f"on_error must be 'raise' or 'zero', got {on_error!r}")
+    parsed, device = frame.plan.parsed, frame.device
+    header = parsed.header
+    spec_stats = None
+    if frame.plan.scan is not None:
+        scanned = _scan_decode(frame)
+        if scanned is None:
+            frame = upload_frame(plan_frame(parsed, specsync=False), device)
+        else:
+            kernel_out, err, spec_stats = scanned
+            plan_nseg, plan_mps = header.n_mcus, 1
+    if spec_stats is None:
+        rows = frame.plan.rows
+        tabs = device_tables(rows.cbase, rows.counts, rows.symbols, device, scan=False)
+        kernel_out, err = entropy_device.decode_segments_device(
+            *frame.tensors[:5], tabs.cbase, tabs.counts, tabs.symbols, lut=tabs.k2_lut)
+        if rows.dc_base is not None:
+            # Pseudo segments of a stream without restart markers: restore
+            # the DC predictor continuation the index scan recorded (before
+            # salvage, so zeroed segments stay flat gray).
+            kernel_out = entropy_device.apply_dc_base(
+                kernel_out, frame.tensors[5], frame.tensors[1])
+        plan_nseg, plan_mps = rows.n_segments, rows.mcus_per_segment
+    if on_error == "zero":
+        # Blank flagged segments: the damage stays inside the segment.
+        kernel_out = torch.where((err != 0)[:, None, None], 0, kernel_out)
+    coefs = entropy_device.assemble_components(
+        kernel_out,
+        n_segments=plan_nseg,
+        mcus_per_segment=plan_mps,
+        n_mcus=header.n_mcus,
+        nhmb=header.nhmb,
+        nvmb=header.nvmb,
+        comp_geometry=_scan_geometry(header),
+        soa=soa,
+        frame_order=header.scan.comp_idx,
+    )
+    if check_errors and on_error == "raise":
+        # Flags are exact for every segment (K2 suppresses the spurious
+        # flags of a short last segment's padded tail).
+        _raise_on_segment_flags(
+            err, plan_nseg, "pseudo segment" if spec_stats is not None else "restart segment")
+    return DeviceEntropyResult(coefs=coefs, err=err, n_segments=plan_nseg,
+                               specsync_stats=spec_stats)
+
+
 def entropy_decode_device(
     parsed: ParsedJpeg,
     device=None,
@@ -197,7 +367,8 @@ def entropy_decode_device(
     on_error: str = "raise",
     specsync: bool = True,
 ) -> DeviceEntropyResult:
-    """Decode the scan's entropy bits on ``device`` (K2 on a CUDA device).
+    """Decode the scan's entropy bits on ``device`` (K2 on a CUDA device):
+    :func:`plan_frame`, :func:`upload_frame` and :func:`decode_frame` in turn.
 
     ``device=None`` means "cuda" and raises without a card; the CPU, with
     the kernels' plain versions, runs only for ``device="cpu"``.
@@ -218,59 +389,8 @@ def entropy_decode_device(
     if on_error not in ("raise", "zero"):
         raise ValueError(f"on_error must be 'raise' or 'zero', got {on_error!r}")
     device = resolve_device(device, "entropy_decode_device")
-    header = parsed.header
-    check_scan_fits(parsed)
-    spec_result = None
-    if (
-        specsync
-        and not header.restart_interval
-        and len(parsed.segments) == 1
-        and header.n_mcus >= 2
-    ):
-        spec_result = _spec_decode_try(parsed, device)
-    spec_stats = None
-    if spec_result is not None:
-        kernel_out, err, spec_stats = spec_result
-        plan_nseg, plan_mps = header.n_mcus, 1
-    else:
-        plan = build_plan_auto(parsed)
-        plan_nseg, plan_mps = plan.n_segments, plan.mcus_per_segment
-        tabs = device_tables(plan.cbase, plan.counts, plan.symbols, device, scan=False)
-        tensors = plan_tensors((plan.streams,) + plan.kernel_tables[:4], device)
-        kernel_out, err = entropy_device.decode_segments_device(
-            *tensors, tabs.cbase, tabs.counts, tabs.symbols, lut=tabs.k2_lut)
-        if plan.dc_base is not None:
-            # Pseudo segments of a stream without restart markers: restore
-            # the DC predictor continuation the index scan recorded (before
-            # salvage, so zeroed segments stay flat gray).
-            nbatch = kernel_out.shape[0]
-            dcb = np.zeros((nbatch * 8 * 128, plan.dc_base.shape[1]), dtype=np.int32)
-            dcb[: plan.n_segments] = plan.dc_base
-            kernel_out = entropy_device.apply_dc_base(
-                kernel_out,
-                torch.from_numpy(dcb.reshape(nbatch, 8, 128, -1)).to(device),
-                tensors[1],
-            )
-    if on_error == "zero":
-        # Blank flagged segments: the damage stays inside the segment.
-        kernel_out = torch.where((err != 0)[:, None, None], 0, kernel_out)
-    coefs = entropy_device.assemble_components(
-        kernel_out,
-        n_segments=plan_nseg,
-        mcus_per_segment=plan_mps,
-        n_mcus=header.n_mcus,
-        nhmb=header.nhmb,
-        nvmb=header.nvmb,
-        comp_geometry=_scan_geometry(header),
-        soa=soa,
-        frame_order=header.scan.comp_idx,
-    )
-    if check_errors and on_error == "raise":
-        # Flags are exact for every segment (K2 suppresses the spurious
-        # flags of a short last segment's padded tail).
-        _raise_on_segment_flags(
-            err, plan_nseg, "pseudo segment" if spec_stats is not None else "restart segment")
-    return DeviceEntropyResult(coefs=coefs, err=err, specsync_stats=spec_stats)
+    frame = upload_frame(plan_frame(parsed, specsync=specsync), device)
+    return decode_frame(frame, soa=soa, on_error=on_error, check_errors=check_errors)
 
 
 def expand_pack_device(parsed: ParsedJpeg, scan, device=None) -> Tuple[torch.Tensor, ...]:
@@ -315,11 +435,8 @@ def _spec_decode_sharded_try(parsed: ParsedJpeg, mesh, exact, upsample, check_er
     from jpeg_gpu_tpu_torch.parallel import shard
 
     header = parsed.header
-    try:
-        inp = build_spec_scan_input(parsed, sb_target=SCAN_SB_TARGET)
-    except JpegUnsupportedError:
-        return None
-    if not mcu_starts_fit(inp.n_bits, inp.n_mcus, inp.bpm):
+    inp = _scan_input(parsed)
+    if inp is None:
         return None
     spec = pipeline.PipelineSpec.from_header(header, exact=exact, upsample=upsample)
     first = mesh.first_device
@@ -394,11 +511,7 @@ def decode_image_device_sharded(
     if plan.dc_base is not None:
         # Pseudo segments of the serial scan: their DC bases shard with the
         # streams.
-        dcb = np.zeros((streams.shape[0] * entropy_device.SLOTS, plan.dc_base.shape[1]),
-                       dtype=np.int32)
-        dcb[: plan.n_segments] = plan.dc_base
-        arrays.append(dcb.reshape(streams.shape[0], entropy_device.SUBLANES,
-                                  entropy_device.LANES, -1))
+        arrays.append(_dc_base_rows(plan, streams.shape[0]))
     first = mesh.first_device
     tensors = plan_tensors(arrays, first)
     tabs = device_tables(plan.cbase, plan.counts, plan.symbols, first, scan=False)

@@ -116,28 +116,6 @@ def check_fallback(device: torch.device) -> bool:
         torch.equal(a.cpu(), b.cpu()) for a, b in zip(forced.coefs, normal.coefs))
 
 
-def device_ms(fn, iters: int) -> dict:
-    """Mean device time of each kernel fn() launches, by name, over ``iters``
-    calls after a warm-up call, from torch.profiler's device-side events:
-    what the card spends, without the wrapper's time on the host, which CUDA
-    events around back-to-back calls include whenever the host is the slower
-    of the two."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):   # a window the profiler saw no device event in is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        times = {e.key[:72]: e.self_device_time_total / 1e3 / iters
-                 for e in prof.key_averages() if e.self_device_time_total > 0}
-        if times:
-            return times
-    raise RuntimeError("torch.profiler recorded no device time")
-
-
 def serving_1080p(data: Optional[bytes], card: str, reps: int = 5) -> dict:
     """Serving numbers of one 1080p 4:2:0 frame without restart markers on
     the card: the scan's device time (torch.profiler, all its kernels, mean
@@ -148,6 +126,7 @@ def serving_1080p(data: Optional[bytes], card: str, reps: int = 5) -> dict:
     from jpeg_gpu_tpu_torch.host.parser import parse
     from jpeg_gpu_tpu_torch.host.segments import build_spec_scan_input
     from jpeg_gpu_tpu_torch.testing import corpus
+    from jpeg_gpu_tpu_torch.testing.timing import device_ms
 
     if data is None:
         data = corpus.own_jpeg(corpus.synthetic_rgb(1080, 1920, seed=1), "4:2:0",

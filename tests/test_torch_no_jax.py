@@ -172,3 +172,25 @@ def test_fullsize_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+BENCH = """
+import sys
+from jpeg_gpu_tpu_torch import bench
+frame = bench.Frame.of(bench.encode(32, 48, "4:2:0", 1, 0))
+out = bench.serve([frame], 2, "cpu", loop_reps=1, host_reps=1)
+assert out["impl"] == "device_specsync" and len(out["frames"]) == 2, out["impl"]
+leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jpeg_gpu_tpu.")))
+print("LEAKED", leaked)
+assert not leaked, leaked
+"""
+
+
+def test_bench_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-c", BENCH], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
