@@ -17,6 +17,7 @@ jpeg_gpu.c:1228-1461, with the host/total time split).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 import time
@@ -27,6 +28,7 @@ from jpeg_gpu_tpu_torch.engine.decoder import _BACKENDS, get_decoder
 from jpeg_gpu_tpu_torch.engine.stages import OutputStage
 from jpeg_gpu_tpu_torch.errors import JpegError
 from jpeg_gpu_tpu_torch.utils import logging as log_util
+from jpeg_gpu_tpu_torch.utils import trace
 from jpeg_gpu_tpu_torch.utils.device import resolve_device
 
 
@@ -132,7 +134,10 @@ def _dump(result, stage: OutputStage) -> None:
 
 def _profiled_decode(dec, stage: OutputStage, out_dir: str):
     """decode(stage) under torch.profiler (the card's activity too when
-    there is one); the trace goes to ``out_dir``/trace.json."""
+    there is one) and the program's tracer (``utils.trace``); the trace,
+    with the program's spans as complete events and its counters as counter
+    events at the last span's end, of category ``program`` on the profiler's
+    clock, goes to ``out_dir``/trace.json."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,11 +146,27 @@ def _profiled_decode(dec, stage: OutputStage, out_dir: str):
         activities.append(ProfilerActivity.CUDA)
     dec.decode(stage)  # warm-up so the trace holds steady state
     dec.reset()
-    with profile(activities=activities) as prof:
+    with trace.enable(), profile(activities=activities) as prof:
         result = dec.decode(stage)
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        doc = json.load(f)
+    base_ns = doc.get("baseTimeNanoseconds", 0)
+    snap = trace.snapshot()
+    doc["traceEvents"].extend(
+        {"ph": "X", "cat": "program", "name": s.name, "pid": os.getpid(), "tid": s.thread,
+         "ts": (s.clock_start_ns - base_ns) / 1e3, "dur": s.wall_ns / 1e3,
+         "args": {"frame": s.frame, "cpu_us": None if s.cpu_ns is None else s.cpu_ns / 1e3}}
+        for s in snap.spans)
+    end_us = max(((s.clock_end_ns - base_ns) / 1e3 for s in snap.spans), default=0.0)
+    doc["traceEvents"].extend(
+        {"ph": "C", "cat": "program", "name": name, "pid": os.getpid(), "ts": end_us,
+         "args": {name: n}}
+        for name, n in sorted(snap.counters.items()))
+    with open(path, "w") as f:
+        json.dump(doc, f)
     print(f"profiler trace written to {path}")
     return result
 

@@ -35,6 +35,7 @@ from jpeg_gpu_tpu_torch.host.segments import (
 from jpeg_gpu_tpu_torch.ops import entropy_device
 from jpeg_gpu_tpu_torch.ops import specsync_device
 from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
+from jpeg_gpu_tpu_torch.utils import trace
 from jpeg_gpu_tpu_torch.utils.device import resolve_device
 from jpeg_gpu_tpu_torch.utils.logging import get_logger
 
@@ -161,6 +162,10 @@ class FramePlan:
     scan: Optional[SpecScanInput] = None
     rows: Optional[DeviceScanPlan] = None
 
+    @property
+    def frame_id(self) -> int:
+        return self.parsed.frame_id
+
 
 @dataclasses.dataclass
 class UploadedFrame:
@@ -173,6 +178,10 @@ class UploadedFrame:
     plan: FramePlan
     device: torch.device
     tensors: Tuple[torch.Tensor, ...]
+
+    @property
+    def frame_id(self) -> int:
+        return self.plan.frame_id
 
 
 def plan_frame(
@@ -192,19 +201,20 @@ def plan_frame(
 
     A serving loop pins the shapes of its first frame: ``nw`` (words per
     segment row; skips the sizing pass) and ``subseq_bytes`` (the window
-    stride)."""
-    check_scan_fits(parsed)
-    header = parsed.header
-    if (
-        specsync
-        and not header.restart_interval
-        and len(parsed.segments) == 1
-        and header.n_mcus >= 2
-    ):
-        inp = _scan_input(parsed, nw, subseq_bytes)
-        if inp is not None:
-            return FramePlan(parsed, scan=inp)
-    return FramePlan(parsed, rows=build_plan_auto(parsed, nw=nw))
+    stride).  Span ``engine.plan_frame``."""
+    with trace.span("engine.plan_frame", parsed.frame_id):
+        check_scan_fits(parsed)
+        header = parsed.header
+        if (
+            specsync
+            and not header.restart_interval
+            and len(parsed.segments) == 1
+            and header.n_mcus >= 2
+        ):
+            inp = _scan_input(parsed, nw, subseq_bytes)
+            if inp is not None:
+                return FramePlan(parsed, scan=inp)
+        return FramePlan(parsed, rows=build_plan_auto(parsed, nw=nw))
 
 
 def _scan_input(parsed: ParsedJpeg, nw=None, subseq_bytes=None) -> Optional[SpecScanInput]:
@@ -234,25 +244,32 @@ def _scan_decode(frame: UploadedFrame):
     or None when the scan did not converge or overflowed its records.  The
     scan's ``ok`` is read, with its stats in one copy, before K2 is enqueued
     or its output allocated, so K2 never runs on the bit positions of a scan
-    that failed."""
+    that failed.  Spans ``engine.scan`` (K3's launch), ``engine.scan_verdict``
+    (the read) and ``engine.k2``; counters ``engine.scan_frames`` (verdicts
+    read) and ``engine.scan_rounds`` (the scan's rounds)."""
     inp = frame.plan.scan
-    tabs = device_tables(inp.cbase, inp.counts, inp.symbols, frame.device, scan=True)
     windows, dcslot_c, acslot_c, comp_map, dcslot_map, acslot_map = frame.tensors
-    bitpos, ok, stats = specsync_device.device_index_scan(
-        windows, inp.n_bits, dcslot_c, acslot_c, tabs.cbase, tabs.counts, tabs.symbols,
-        sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus, lut=tabs.k3_lut,
-    )
-    verdict = torch.cat([stats, ok.reshape(1).to(stats.dtype)]).cpu().numpy()
+    with trace.span("engine.scan", frame.frame_id, cpu=False):
+        tabs = device_tables(inp.cbase, inp.counts, inp.symbols, frame.device, scan=True)
+        bitpos, ok, stats = specsync_device.device_index_scan(
+            windows, inp.n_bits, dcslot_c, acslot_c, tabs.cbase, tabs.counts, tabs.symbols,
+            sb=inp.subseq_bytes, maxrec=inp.maxrec, n_mcus=inp.n_mcus, lut=tabs.k3_lut,
+        )
+    with trace.span("engine.scan_verdict"):
+        verdict = torch.cat([stats, ok.reshape(1).to(stats.dtype)]).cpu().numpy()
+    trace.count("engine.scan_frames")
+    trace.count("engine.scan_rounds", int(verdict[0]))
     if not verdict[3]:
         log.debug(
             "device index scan did not converge (stats=%s); falling back "
             "to the serial index scan", verdict[:3],
         )
         return None
-    out, err = entropy_device.decode_mcus_at_bitpos(
-        windows, bitpos, inp.n_bits, comp_map, dcslot_map, acslot_map,
-        tabs.cbase, tabs.counts, tabs.symbols, spw=inp.spw, lut=tabs.k2_lut,
-    )
+    with trace.span("engine.k2", cpu=False):
+        out, err = entropy_device.decode_mcus_at_bitpos(
+            windows, bitpos, inp.n_bits, comp_map, dcslot_map, acslot_map,
+            tabs.cbase, tabs.counts, tabs.symbols, spw=inp.spw, lut=tabs.k2_lut,
+        )
     return out, err, verdict[:3]
 
 
@@ -279,18 +296,19 @@ def _dc_base_rows(rows: DeviceScanPlan, nbatch: int) -> np.ndarray:
 def upload_frame(plan: FramePlan, device=None) -> UploadedFrame:
     """A frame's per-frame arrays to ``device`` in one pinned copy on the
     current stream (``plan_tensors``).  ``device=None`` means "cuda" and
-    raises without a card."""
+    raises without a card.  Span ``engine.upload_frame``."""
     device = resolve_device(device, "upload_frame")
-    if plan.scan is not None:
-        inp = plan.scan
-        arrays = (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
-                  inp.dc_slot_of_step, inp.ac_slot_of_step)
-    else:
-        rows = plan.rows
-        arrays = (rows.streams,) + tuple(rows.kernel_tables[:4])
-        if rows.dc_base is not None:
-            arrays += (_dc_base_rows(rows, rows.streams.shape[0]),)
-    return UploadedFrame(plan, device, plan_tensors(arrays, device))
+    with trace.span("engine.upload_frame", plan.frame_id):
+        if plan.scan is not None:
+            inp = plan.scan
+            arrays = (inp.windows, inp.dcslot_of_c, inp.acslot_of_c, inp.comp_of_step,
+                      inp.dc_slot_of_step, inp.ac_slot_of_step)
+        else:
+            rows = plan.rows
+            arrays = (rows.streams,) + tuple(rows.kernel_tables[:4])
+            if rows.dc_base is not None:
+                arrays += (_dc_base_rows(rows, rows.streams.shape[0]),)
+        return UploadedFrame(plan, device, plan_tensors(arrays, device))
 
 
 def decode_frame(
@@ -311,52 +329,59 @@ def decode_frame(
     ``soa``, ``on_error`` and ``check_errors`` as in
     :func:`entropy_decode_device`.  With ``check_errors=False`` nothing is
     read back but the scan's verdict: a caller reduces the flags of
-    ``err[:n_segments]`` itself."""
+    ``err[:n_segments]`` itself.
+
+    Span ``engine.decode_frame``, around ``engine.scan``,
+    ``engine.scan_verdict`` and ``engine.k2`` (:func:`_scan_decode`, or K2's
+    row form with the DC bases) and ``engine.assemble``."""
     if on_error not in ("raise", "zero"):
         raise ValueError(f"on_error must be 'raise' or 'zero', got {on_error!r}")
-    parsed, device = frame.plan.parsed, frame.device
-    header = parsed.header
-    spec_stats = None
-    if frame.plan.scan is not None:
-        scanned = _scan_decode(frame)
-        if scanned is None:
-            frame = upload_frame(plan_frame(parsed, specsync=False), device)
-        else:
-            kernel_out, err, spec_stats = scanned
-            plan_nseg, plan_mps = header.n_mcus, 1
-    if spec_stats is None:
-        rows = frame.plan.rows
-        tabs = device_tables(rows.cbase, rows.counts, rows.symbols, device, scan=False)
-        kernel_out, err = entropy_device.decode_segments_device(
-            *frame.tensors[:5], tabs.cbase, tabs.counts, tabs.symbols, lut=tabs.k2_lut)
-        if rows.dc_base is not None:
-            # Pseudo segments of a stream without restart markers: restore
-            # the DC predictor continuation the index scan recorded (before
-            # salvage, so zeroed segments stay flat gray).
-            kernel_out = entropy_device.apply_dc_base(
-                kernel_out, frame.tensors[5], frame.tensors[1])
-        plan_nseg, plan_mps = rows.n_segments, rows.mcus_per_segment
-    if on_error == "zero":
-        # Blank flagged segments: the damage stays inside the segment.
-        kernel_out = torch.where((err != 0)[:, None, None], 0, kernel_out)
-    coefs = entropy_device.assemble_components(
-        kernel_out,
-        n_segments=plan_nseg,
-        mcus_per_segment=plan_mps,
-        n_mcus=header.n_mcus,
-        nhmb=header.nhmb,
-        nvmb=header.nvmb,
-        comp_geometry=_scan_geometry(header),
-        soa=soa,
-        frame_order=header.scan.comp_idx,
-    )
-    if check_errors and on_error == "raise":
-        # Flags are exact for every segment (K2 suppresses the spurious
-        # flags of a short last segment's padded tail).
-        _raise_on_segment_flags(
-            err, plan_nseg, "pseudo segment" if spec_stats is not None else "restart segment")
-    return DeviceEntropyResult(coefs=coefs, err=err, n_segments=plan_nseg,
-                               specsync_stats=spec_stats)
+    with trace.span("engine.decode_frame", frame.frame_id):
+        parsed, device = frame.plan.parsed, frame.device
+        header = parsed.header
+        spec_stats = None
+        if frame.plan.scan is not None:
+            scanned = _scan_decode(frame)
+            if scanned is None:
+                frame = upload_frame(plan_frame(parsed, specsync=False), device)
+            else:
+                kernel_out, err, spec_stats = scanned
+                plan_nseg, plan_mps = header.n_mcus, 1
+        if spec_stats is None:
+            rows = frame.plan.rows
+            with trace.span("engine.k2", cpu=False):
+                tabs = device_tables(rows.cbase, rows.counts, rows.symbols, device, scan=False)
+                kernel_out, err = entropy_device.decode_segments_device(
+                    *frame.tensors[:5], tabs.cbase, tabs.counts, tabs.symbols, lut=tabs.k2_lut)
+                if rows.dc_base is not None:
+                    # Pseudo segments of a stream without restart markers: restore
+                    # the DC predictor continuation the index scan recorded (before
+                    # salvage, so zeroed segments stay flat gray).
+                    kernel_out = entropy_device.apply_dc_base(
+                        kernel_out, frame.tensors[5], frame.tensors[1])
+            plan_nseg, plan_mps = rows.n_segments, rows.mcus_per_segment
+        if on_error == "zero":
+            # Blank flagged segments: the damage stays inside the segment.
+            kernel_out = torch.where((err != 0)[:, None, None], 0, kernel_out)
+        with trace.span("engine.assemble", cpu=False):
+            coefs = entropy_device.assemble_components(
+                kernel_out,
+                n_segments=plan_nseg,
+                mcus_per_segment=plan_mps,
+                n_mcus=header.n_mcus,
+                nhmb=header.nhmb,
+                nvmb=header.nvmb,
+                comp_geometry=_scan_geometry(header),
+                soa=soa,
+                frame_order=header.scan.comp_idx,
+            )
+        if check_errors and on_error == "raise":
+            # Flags are exact for every segment (K2 suppresses the spurious
+            # flags of a short last segment's padded tail).
+            _raise_on_segment_flags(
+                err, plan_nseg, "pseudo segment" if spec_stats is not None else "restart segment")
+        return DeviceEntropyResult(coefs=coefs, err=err, n_segments=plan_nseg,
+                                   specsync_stats=spec_stats)
 
 
 def entropy_decode_device(

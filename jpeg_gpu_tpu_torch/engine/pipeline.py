@@ -26,6 +26,7 @@ from jpeg_gpu_tpu_torch.ops import idct_float
 from jpeg_gpu_tpu_torch.ops import idct_islow_plane
 from jpeg_gpu_tpu_torch.ops import pixel_fused
 from jpeg_gpu_tpu_torch.ops.block_plane import blocks_as_soa
+from jpeg_gpu_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,10 +169,12 @@ def decode_rgb_soa(spec: PipelineSpec, geom, comps_soa, qtables):
     ``comps_soa`` is the native decoder's SoA output: luma
     (..., sy, sx, 64, vbC, hbC), chroma (..., 1, 1, 64, vbC, hbC).
     Returns the (..., H, W, 3) uint8 tensor on the planes' device;
-    bit-identical to decode_rgb.
+    bit-identical to decode_rgb.  Span ``pipeline.decode_rgb_soa``, of the
+    frame its thread last decoded.
     """
-    args, kwargs = fused_soa_args(spec, geom, comps_soa, qtables)
-    return pixel_fused.decode_rgb_fused_soa(*args, **kwargs)
+    with trace.span("pipeline.decode_rgb_soa"):
+        args, kwargs = fused_soa_args(spec, geom, comps_soa, qtables)
+        return pixel_fused.decode_rgb_fused_soa(*args, **kwargs)
 
 
 def fused_soa_args(spec: PipelineSpec, geom, comps_soa, qtables):

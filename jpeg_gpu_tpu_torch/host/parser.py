@@ -32,6 +32,7 @@ from jpeg_gpu_tpu_torch.info import (
     derive_geometry,
 )
 from jpeg_gpu_tpu_torch.ops.zigzag import zigzag_to_raster
+from jpeg_gpu_tpu_torch.utils import trace
 from jpeg_gpu_tpu_torch.utils.logging import get_logger
 
 log = get_logger("entropy")
@@ -70,6 +71,8 @@ class ParsedJpeg:
     header: JpegHeader
     data: bytes
     segments: np.ndarray
+    # The frame's id in the tracer's spans (utils.trace.new_frame).
+    frame_id: int = dataclasses.field(default=0, compare=False)
 
     @property
     def entropy_bytes(self) -> int:
@@ -302,12 +305,21 @@ def _scan_entropy_segments(
 
 
 def parse(data: bytes, headers_only: bool = False, validate: bool = True) -> ParsedJpeg:
-    """Parse a baseline JPEG stream.
+    """Parse a baseline JPEG stream, as a new frame of the tracer's spans
+    (span ``host.parse``).
 
     With ``headers_only`` the parse stops at SOS like the reference's
     ``xjpeg_decode_header`` (xjpeg.c:716-719, 765); the returned
     ``segments`` is then empty.
     """
+    frame_id = trace.new_frame()
+    with trace.span("host.parse", frame_id):
+        header, segments = _parse_markers(data, headers_only, validate)
+    return ParsedJpeg(header=header, data=data, segments=segments, frame_id=frame_id)
+
+
+def _parse_markers(data: bytes, headers_only: bool, validate: bool):
+    """:func:`parse`'s work: (header, segments)."""
     r = _Reader(data)
     if r.u8() != 0xFF or r.u8() != M_SOI:
         raise JpegFormatError("missing SOI marker")  # cf. xjpeg.c:779-781
@@ -401,4 +413,4 @@ def parse(data: bytes, headers_only: bool = False, validate: bool = True) -> Par
         nhmb=nhmb,
         nvmb=nvmb,
     )
-    return ParsedJpeg(header=header, data=data, segments=segments)
+    return header, segments

@@ -26,6 +26,7 @@ import numpy as np
 from jpeg_gpu_tpu_torch.errors import JpegFormatError, JpegUnsupportedError
 from jpeg_gpu_tpu_torch.host.parser import ParsedJpeg
 from jpeg_gpu_tpu_torch.info import HuffmanSpec
+from jpeg_gpu_tpu_torch.utils import trace
 
 LANES = 128
 SUBLANES = 8
@@ -517,11 +518,21 @@ def build_spec_scan_input(
     from jpeg_gpu_tpu_torch.host.specsync import destuff
 
     header = parsed.header
-    scan = header.scan
-    assert scan is not None
+    assert header.scan is not None
     if header.restart_interval or len(parsed.segments) != 1:
         raise ValueError("build_spec_scan_input is for single-segment streams")
     data = destuff(parsed)
+    with trace.span("host.scan_windows", cpu=False):
+        return _spec_scan_input(parsed, data, subseq_bytes, nw, sb_target, max_words)
+
+
+def _spec_scan_input(parsed: ParsedJpeg, data: np.ndarray, subseq_bytes: Optional[int],
+                     nw: Optional[int], sb_target: int, max_words: int) -> SpecScanInput:
+    """:func:`build_spec_scan_input` past the destuff (span
+    ``host.scan_windows``): the window rows, the step and slot maps and the
+    table tensors of the destuffed bytes ``data``."""
+    header = parsed.header
+    scan = header.scan
     n_bytes = int(data.size)
     n_bits = n_bytes * 8
     n_mcus = header.n_mcus

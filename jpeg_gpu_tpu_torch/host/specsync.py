@@ -60,6 +60,7 @@ import numpy as np
 
 from jpeg_gpu_tpu_torch.host.parser import ParsedJpeg
 from jpeg_gpu_tpu_torch.host.segments import _step_maps, _table_tensors
+from jpeg_gpu_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -76,15 +77,17 @@ class SpecSyncResult:
 
 
 def destuff(parsed: ParsedJpeg) -> np.ndarray:
-    """Destuffed entropy bytes of a single-segment (DRI-less) stream."""
+    """Destuffed entropy bytes of a single-segment (DRI-less) stream (span
+    ``host.destuff``)."""
     if len(parsed.segments) != 1:
         raise ValueError("specsync is for single-segment (no-DRI) streams")
-    s0, e0 = (int(x) for x in parsed.segments[0])
-    arr = np.frombuffer(parsed.data, dtype=np.uint8)[s0:e0]
-    # A stuffed zero is a 0x00 directly after 0xFF inside the segment.
-    stuffed = np.zeros(arr.shape, dtype=bool)
-    stuffed[1:] = (arr[1:] == 0) & (arr[:-1] == 0xFF)
-    return arr[~stuffed]
+    with trace.span("host.destuff", cpu=False):
+        s0, e0 = (int(x) for x in parsed.segments[0])
+        arr = np.frombuffer(parsed.data, dtype=np.uint8)[s0:e0]
+        # A stuffed zero is a 0x00 directly after 0xFF inside the segment.
+        stuffed = np.zeros(arr.shape, dtype=bool)
+        stuffed[1:] = (arr[1:] == 0) & (arr[:-1] == 0xFF)
+        return arr[~stuffed]
 
 
 def _flat_entries(symbols: np.ndarray) -> np.ndarray:

@@ -4,6 +4,7 @@ The port of ``tests/test_cli.py``.  The torch backend's default device is
 the card, so every run of it here passes ``--device cpu``.
 """
 
+import json
 import sys
 
 import numpy as np
@@ -92,9 +93,42 @@ def test_cli_save_without_pillow(jpg, tmp_path, monkeypatch, capsys):
     assert "Pillow" in capsys.readouterr().err
 
 
+def _program_spans(path, ph="X"):
+    doc = json.loads(path.read_text())
+    return [e for e in doc["traceEvents"] if e.get("cat") == "program" and e["ph"] == ph]
+
+
 def test_cli_profile(jpg, tmp_path, capsys):
+    """The trace holds the program's spans of the profiled decode (host
+    entropy: the parse and K1's call), as complete events beside the
+    profiler's operations."""
     assert main(["--device", "cpu", "--profile", str(tmp_path / "prof"), jpg]) == 0
-    assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    path = tmp_path / "prof" / "trace.json"
+    assert path.stat().st_size > 0
+    spans = _program_spans(path)
+    assert sorted(e["name"] for e in spans) == ["host.parse", "pipeline.decode_rgb_soa"]
+    ops = [e for e in json.loads(path.read_text())["traceEvents"]
+           if e.get("ph") == "X" and e.get("cat") != "program"]
+    # On the profiler's clock: the spans lie among the profiled operations.
+    assert min(e["ts"] for e in ops) - 1e5 < min(e["ts"] for e in spans)
+    assert max(e["ts"] for e in spans) < max(e["ts"] + e["dur"] for e in ops) + 1e5
+    assert all(e["ph"] == "X" and e["dur"] >= 0 and "frame" in e["args"] for e in spans)
+
+
+def test_cli_profile_device_entropy(jpg, tmp_path, capsys):
+    """With the Huffman decode on the device every span of the engine's
+    halves is in the trace, all of one frame."""
+    assert main(["--device", "cpu", "-e", "device", "--profile", str(tmp_path / "p"),
+                 jpg]) == 0
+    spans = _program_spans(tmp_path / "p" / "trace.json")
+    assert {e["name"] for e in spans} == {
+        "host.parse", "engine.plan_frame", "host.destuff", "host.scan_windows",
+        "engine.upload_frame", "engine.decode_frame", "engine.scan", "engine.scan_verdict",
+        "engine.k2", "engine.assemble", "pipeline.decode_rgb_soa"}
+    assert len({e["args"]["frame"] for e in spans}) == 1
+    counters = {e["name"]: e["args"][e["name"]]
+                for e in _program_spans(tmp_path / "p" / "trace.json", "C")}
+    assert counters["engine.scan_frames"] == 1 and counters["engine.scan_rounds"] >= 1
 
 
 def test_cli_device_errors(jpg, capsys):
