@@ -46,6 +46,10 @@ class _ScanConfig(ctypes.Structure):
     ]
 
 
+# What xjpeg_host.cpp's xjpeg_host_abi_version returns for the functions
+# declared here.
+ABI_VERSION = 7
+
 _lib = None
 _lib_lock = threading.Lock()
 _unavailable = False
@@ -65,6 +69,14 @@ def _load() -> Optional[ctypes.CDLL]:
             _unavailable = True
             return None
         lib = ctypes.CDLL(str(path))
+        lib.xjpeg_host_abi_version.restype = ctypes.c_int32
+        lib.xjpeg_host_abi_version.argtypes = []
+        abi = lib.xjpeg_host_abi_version()
+        if abi != ABI_VERSION:
+            log.warning("native decoder %s has ABI %d, not %d; falling back",
+                        path, abi, ABI_VERSION)
+            _unavailable = True
+            return None
         lib.xjpeg_decode_scan.restype = ctypes.c_int32
         lib.xjpeg_decode_scan.argtypes = [
             ctypes.c_char_p,                      # data
@@ -155,6 +167,26 @@ def _load() -> Optional[ctypes.CDLL]:
             ctypes.c_int64,                       # row_bytes
             ctypes.c_void_p,                      # mat
             ctypes.c_int32,                       # n_threads
+        ]
+        lib.xjpeg_scan_markers.restype = ctypes.c_int32
+        lib.xjpeg_scan_markers.argtypes = [
+            ctypes.c_void_p,                      # data
+            ctypes.c_int64,                       # len
+            ctypes.c_int64,                       # start
+            ctypes.c_void_p,                      # rst_pos i64
+            ctypes.c_int64,                       # rst_cap
+            ctypes.c_void_p,                      # out i64[5]
+        ]
+        lib.xjpeg_scan_windows.restype = ctypes.c_int64
+        lib.xjpeg_scan_windows.argtypes = [
+            ctypes.c_void_p,                      # data
+            ctypes.c_int64,                       # len
+            ctypes.c_int64,                       # seg_start
+            ctypes.c_int64,                       # seg_end
+            ctypes.c_int64,                       # bs
+            ctypes.c_int64,                       # spw
+            ctypes.c_int64,                       # nws
+            ctypes.c_void_p,                      # out i32
         ]
         _lib = lib
         return lib
@@ -500,3 +532,45 @@ def pack_streams_bits(
         raise JpegFormatError(
             f"native bit pack failed: {_ERROR_NAMES.get(rc, rc)}"
         )
+
+
+def scan_markers(data, start: int, rst_cap: int) -> tuple:
+    """The parser's marker walk of the entropy-coded data from ``start``
+    (xjpeg_host.cpp:xjpeg_scan_markers): (the positions of the RSTn before
+    the marker that ends the scan, int64; that marker's position, or
+    ``len(data)`` if none ends it; None or (index, n) of the first RSTn out
+    of the modulo-8 sequence; the stuffed zeros before the end).
+    ``rst_cap`` is a first guess at the count of RSTn; more take a second
+    call."""
+    lib = _load()
+    assert lib is not None
+    buf = np.frombuffer(data, dtype=np.uint8)
+    out = np.zeros(5, dtype=np.int64)
+    while True:
+        rst = np.empty(max(rst_cap, 1), dtype=np.int64)
+        rc = lib.xjpeg_scan_markers(buf.ctypes.data, buf.size, start, rst.ctypes.data,
+                                    rst.size, out.ctypes.data)
+        if rc != 0:
+            raise JpegFormatError(f"native marker walk failed: {_ERROR_NAMES.get(rc, rc)}")
+        n_rst, end_pos, bad, bad_n, stuffed = (int(x) for x in out)
+        if n_rst <= rst.size:
+            return rst[:n_rst], end_pos, None if bad < 0 else (bad, bad_n), stuffed
+        rst_cap = n_rst
+
+
+def scan_windows(parsed: ParsedJpeg, bs: int, spw: int, nws: int) -> np.ndarray:
+    """The device index scan's window rows of a single-segment stream in
+    one pass (xjpeg_host.cpp:xjpeg_scan_windows): (bs, nws, 8, 128) int32,
+    equal to ``segments.window_rows`` of ``specsync.destuff``'s bytes."""
+    lib = _load()
+    assert lib is not None
+    buf = np.frombuffer(parsed.data, dtype=np.uint8)
+    s0, e0 = (int(x) for x in parsed.segments[0])
+    windows = np.empty((bs, nws, 8, 128), dtype=np.int32)
+    n = lib.xjpeg_scan_windows(buf.ctypes.data, buf.size, s0, e0, bs, spw, nws,
+                               windows.ctypes.data)
+    if n != parsed.destuffed_bytes:
+        raise ValueError(f"segment [{s0}, {e0}) destuffed to {n} bytes, not the parse's "
+                         f"{parsed.destuffed_bytes}, or does not fit {bs} batches of "
+                         f"{nws}-word rows at a stride of {spw} words")
+    return windows

@@ -9,8 +9,8 @@
 // Differences from the reference's design, driven by the TPU engine:
 //  * Restart segments are decoded IN PARALLEL on a thread pool (the
 //    reference decodes strictly serially and uses RSTn only for
-//    validation).  Segment byte spans come from the Python parser's
-//    vectorised marker scan; each segment resets its own bit reader and
+//    validation).  Segment byte spans come from the parser's marker walk
+//    (xjpeg_scan_markers below); each segment resets its own bit reader and
 //    DC predictors per the spec, so decode order is free.
 //  * Full-width 16-bit Huffman LUT per table (symbol+length resolved in
 //    one lookup) instead of an 8-bit prefix table with a maxcode
@@ -807,6 +807,140 @@ int32_t xjpeg_index_scan_pack(const uint8_t* data, int64_t len,
   return ERR_OK;
 }
 
-int32_t xjpeg_host_abi_version() { return 6; }
+// The producer's two walks over a frame's entropy-coded bytes: the
+// parser's marker walk (host/parser.py) and the device index scan's window
+// rows (host/segments.py:build_spec_scan_input).  Both give what their
+// numpy forms give, run with the interpreter lock released (ctypes.CDLL)
+// and keep nothing between calls.  memchr finds each 0xFF; the bytes
+// between two are neither looked at one by one nor, destuffing, copied
+// one by one.
+namespace {
+// The destuffed bytes of [p, e) (less each 0x00 directly after a 0xFF), a
+// piece at a time.
+struct Destuffer {
+  const uint8_t* p;
+  const uint8_t* e;
+
+  // The next ``n`` destuffed bytes into ``out``, 0xFF past the end;
+  // returns how many came from the span.
+  int64_t take(uint8_t* out, int64_t n) {
+    int64_t k = 0;
+    while (k < n && p < e) {
+      const int64_t avail = std::min<int64_t>(n - k, e - p);
+      const uint8_t* f =
+          static_cast<const uint8_t*>(std::memchr(p, 0xFF, size_t(avail)));
+      const int64_t run = f ? f + 1 - p : avail;  // up to and with the 0xFF
+      std::memcpy(out + k, p, size_t(run));
+      k += run;
+      p += run;
+      if (f && p < e && *p == 0x00) ++p;
+    }
+    std::memset(out + k, 0xFF, size_t(n - k));
+    return k;
+  }
+};
+
+constexpr int64_t kScanLanes = 1024;  // 8 sublanes x 128 lanes a batch
+constexpr int64_t kLaneTile = 16;     // lanes a pass of the row writer
+}  // namespace
+
+// The marker walk of the entropy-coded data from ``start``: each 0xFF is
+// stuffed (before 0x00), a fill byte (before 0xFF), a restart marker RSTn
+// or the marker that ends the scan; a 0xFF as the last byte counts as
+// neither stuffed nor a marker.
+//
+//   rst_pos : rst_cap int64, caller-allocated; receives the positions of
+//             the RSTn before the ending marker, in order (those past
+//             rst_cap are counted, not stored)
+//   out[0]  : the number of those RSTn
+//   out[1]  : the position of the ending marker, or len if there is none
+//   out[2]  : the index of the first RSTn out of the modulo-8 sequence
+//             RST0, RST1, ..., RST7, RST0, ..., or -1
+//   out[3]  : that marker's n
+//   out[4]  : the stuffed zeros before the ending marker (what a destuff
+//             of the segments drops)
+//
+// Returns ERR_* (0 on success).
+int32_t xjpeg_scan_markers(const uint8_t* data, int64_t len, int64_t start,
+                           int64_t* rst_pos, int64_t rst_cap, int64_t* out) {
+  if (!data || !out || start < 0 || start > len || rst_cap < 0 ||
+      (rst_cap > 0 && !rst_pos))
+    return ERR_BAD_PARAM;
+  int64_t n_rst = 0, end_pos = len, bad = -1, bad_n = 0, stuffed = 0;
+  const uint8_t* p = data + start;
+  const uint8_t* const e = data + len;
+  while (p < e) {
+    const uint8_t* f =
+        static_cast<const uint8_t*>(std::memchr(p, 0xFF, size_t(e - p)));
+    if (!f || f + 1 >= e) break;
+    const uint8_t m = f[1];
+    if (m == 0x00) {
+      ++stuffed;
+      p = f + 2;
+    } else if (m == 0xFF) {
+      p = f + 1;
+    } else if (m < 0xD0 || m > 0xD7) {
+      end_pos = f - data;
+      break;
+    } else {
+      if (n_rst < rst_cap) rst_pos[n_rst] = f - data;
+      if (bad < 0 && int64_t(m - 0xD0) != (n_rst & 7)) {
+        bad = n_rst;
+        bad_n = m - 0xD0;
+      }
+      ++n_rst;
+      p = f + 2;
+    }
+  }
+  out[0] = n_rst;
+  out[1] = end_pos;
+  out[2] = bad;
+  out[3] = bad_n;
+  out[4] = stuffed;
+  return ERR_OK;
+}
+
+// The device index scan's window rows of the segment [seg_start, seg_end):
+// the segment destuffed and 0xFF-padded, read as big-endian 32-bit words;
+// lane j = (b*8 + s)*128 + l reads words j*spw .. j*spw + nws - 1, word w
+// of them at out[((b*nws + w)*8 + s)*128 + l].  ``out`` holds
+// bs*nws*1024 int32, caller-allocated.  Returns the destuffed length, or
+// -1 on bad parameters or a segment longer than the bs*1024 lanes' strides.
+//
+// One pass: kLaneTile lanes' bytes are destuffed into a buffer that stays
+// in the L1 cache, then written out as whole 64-byte lines of each row.
+int64_t xjpeg_scan_windows(const uint8_t* data, int64_t len,
+                           int64_t seg_start, int64_t seg_end, int64_t bs,
+                           int64_t spw, int64_t nws, int32_t* out) {
+  if (!data || !out || seg_start < 0 || seg_end > len ||
+      seg_start > seg_end || bs < 1 || spw < 1 || nws < spw)
+    return -1;
+  const int64_t stride = spw * 4;
+  const int64_t tail = (nws - spw) * 4;  // a lane's bytes past its stride
+  const int64_t span = kLaneTile * stride;
+  // The tile's lanes and the next lane's first ``tail`` bytes.
+  std::vector<uint8_t> tile(size_t(span + tail));
+  Destuffer src{data + seg_start, data + seg_end};
+  int64_t n = src.take(tile.data(), span + tail);
+  for (int64_t b = 0; b < bs; ++b) {
+    for (int64_t l0 = 0; l0 < kScanLanes; l0 += kLaneTile) {
+      if (b || l0) {
+        std::memmove(tile.data(), tile.data() + span, size_t(tail));
+        n += src.take(tile.data() + tail, span);
+      }
+      int32_t* dst = out + b * nws * kScanLanes + l0;
+      for (int64_t w = 0; w < nws; ++w, dst += kScanLanes) {
+        for (int64_t k = 0; k < kLaneTile; ++k) {
+          uint32_t word;
+          std::memcpy(&word, tile.data() + k * stride + w * 4, 4);
+          dst[k] = int32_t(__builtin_bswap32(word));
+        }
+      }
+    }
+  }
+  return src.p < src.e ? -1 : n;
+}
+
+int32_t xjpeg_host_abi_version() { return 7; }
 
 }  // extern "C"

@@ -7,8 +7,8 @@ of feeding a serial bit reader, parsing here produces (a) a static
 ``JpegHeader`` and (b) the byte spans of every restart segment in the
 entropy-coded data.  Restart segments are the unit of parallel entropy
 decode (SURVEY.md section 5), so finding their boundaries -- a cheap
-byte-level scan, vectorised with numpy -- is a first-class parsing product
-rather than a validation detail.
+byte-level walk, native or vectorised with numpy -- is a first-class parsing
+product rather than a validation detail.
 
 Supported subset mirrors the reference: SOF0 only, 8-bit, 1 or 3
 components, sampling factors 1/2/4, single interleaved scan.
@@ -71,6 +71,8 @@ class ParsedJpeg:
     header: JpegHeader
     data: bytes
     segments: np.ndarray
+    # Stuffed zeros (0x00 after 0xFF) in the segments, which a destuff drops.
+    stuffed: int
     # The frame's id in the tracer's spans (utils.trace.new_frame).
     frame_id: int = dataclasses.field(default=0, compare=False)
 
@@ -79,6 +81,10 @@ class ParsedJpeg:
         if len(self.segments) == 0:
             return 0
         return int((self.segments[:, 1] - self.segments[:, 0]).sum())
+
+    @property
+    def destuffed_bytes(self) -> int:
+        return self.entropy_bytes - self.stuffed
 
 
 class _Reader:
@@ -248,19 +254,54 @@ def _parse_sos(r: _Reader, comps: List[Component], validate: bool) -> ScanHeader
 
 def _scan_entropy_segments(
     data: bytes, start: int, expected_segments: Optional[int], validate: bool
-) -> Tuple[np.ndarray, int]:
+) -> Tuple[np.ndarray, int, int]:
     """Split the entropy-coded data into restart segments.
 
-    Fully vectorised byte scan: every 0xFF is either (a) stuffed
-    (followed by 0x00, part of entropy data), (b) a fill byte (followed
-    by 0xFF), (c) an RSTn separator, or (d) the terminating marker.
-    Segment boundaries are the RSTn positions before the first
-    terminating marker -- pure array arithmetic, no per-segment Python
-    loop (a 1080p R=1 stream has ~8k segments; the loop form was ~60% of
-    the whole parse).  Returns ((nseg, 2) int64 spans, position of the
-    terminating marker).  The RSTn modulo-8 sequence check mirrors
-    xjpeg.c:610-611.
+    Every 0xFF is either (a) stuffed (followed by 0x00, part of entropy
+    data), (b) a fill byte (followed by 0xFF), (c) an RSTn separator, or
+    (d) the terminating marker.  Segment boundaries are the RSTn positions
+    before the first terminating marker.  The walk is native where the host
+    library is available (``entropy_native.scan_markers``, the interpreter
+    lock released; counter ``host.native_markers``), else
+    :func:`_marker_walk`'s numpy passes; no per-segment Python loop either
+    way (a 1080p R=1 stream has ~8k segments).  Returns ((nseg, 2) int64
+    spans, position of the terminating marker, stuffed zeros in the spans).
+    The RSTn modulo-8 sequence check mirrors xjpeg.c:610-611.
     """
+    from jpeg_gpu_tpu_torch.host import entropy_native
+
+    if entropy_native.available():
+        rst_pos, end_pos, bad, stuffed = entropy_native.scan_markers(
+            data, start, (expected_segments or 1) - 1
+        )
+        trace.count("host.native_markers")
+    else:
+        rst_pos, end_pos, bad, stuffed = _marker_walk(data, start)
+    if validate and bad is not None:
+        b, n = bad
+        raise JpegFormatError(
+            f"restart marker out of sequence: got RST{n}, expected RST{b & 7}"
+        )
+    segments = np.empty((rst_pos.size + 1, 2), dtype=np.int64)
+    segments[0, 0] = start
+    segments[1:, 0] = rst_pos + 2
+    segments[:-1, 1] = rst_pos
+    segments[-1, 1] = end_pos
+    if expected_segments is not None and validate and len(segments) != expected_segments:
+        raise JpegFormatError(
+            f"expected {expected_segments} restart segments, found {len(segments)}"
+        )
+    return segments, end_pos, stuffed
+
+
+def _marker_walk(
+    data: bytes, start: int
+) -> Tuple[np.ndarray, int, Optional[Tuple[int, int]], int]:
+    """:func:`_scan_entropy_segments`' walk in numpy passes, where the host
+    library is not available: (RSTn positions before the terminating
+    marker, its position or ``len(data)`` if none ends the data, None or
+    (index, n) of the first RSTn out of the modulo-8 sequence, the stuffed
+    zeros before the end)."""
     buf = np.frombuffer(data, dtype=np.uint8)
     ff_pos = np.flatnonzero(buf[start:] == 0xFF) + start
     # Byte following each 0xFF (0 if at EOF -> treated as stuffed/truncated).
@@ -276,32 +317,14 @@ def _scan_entropy_segments(
     if non_rst.size:
         t = int(non_rst[0])  # markers before the terminating one are RSTs
         end_pos = int(real_pos[t])
-        final_end = end_pos
     else:
         t = int(real_pos.size)  # truncated: no terminating marker
         end_pos = len(data)
-        final_end = len(data)
-    rst_pos = real_pos[:t]
-    if validate and t:
-        seq = (real_m[:t] - M_RST0).astype(np.int64)
-        expect = np.arange(t, dtype=np.int64) & 7
-        bad = np.flatnonzero(seq != expect)
-        if bad.size:
-            b = int(bad[0])
-            raise JpegFormatError(
-                f"restart marker out of sequence: got RST{int(seq[b])}, "
-                f"expected RST{b & 7}"
-            )
-    segments = np.empty((t + 1, 2), dtype=np.int64)
-    segments[0, 0] = start
-    segments[1:, 0] = rst_pos + 2
-    segments[:-1, 1] = rst_pos
-    segments[-1, 1] = final_end
-    if expected_segments is not None and validate and len(segments) != expected_segments:
-        raise JpegFormatError(
-            f"expected {expected_segments} restart segments, found {len(segments)}"
-        )
-    return segments, end_pos
+    seq = (real_m[:t] - M_RST0).astype(np.int64)
+    bad = np.flatnonzero(seq != (np.arange(t, dtype=np.int64) & 7))
+    first_bad = (int(bad[0]), int(seq[bad[0]])) if bad.size else None
+    stuffed = int(np.count_nonzero(in_range & (nxt == 0x00) & (ff_pos < end_pos)))
+    return real_pos[:t], end_pos, first_bad, stuffed
 
 
 def parse(data: bytes, headers_only: bool = False, validate: bool = True) -> ParsedJpeg:
@@ -314,12 +337,13 @@ def parse(data: bytes, headers_only: bool = False, validate: bool = True) -> Par
     """
     frame_id = trace.new_frame()
     with trace.span("host.parse", frame_id):
-        header, segments = _parse_markers(data, headers_only, validate)
-    return ParsedJpeg(header=header, data=data, segments=segments, frame_id=frame_id)
+        header, segments, stuffed = _parse_markers(data, headers_only, validate)
+    return ParsedJpeg(header=header, data=data, segments=segments, stuffed=stuffed,
+                      frame_id=frame_id)
 
 
 def _parse_markers(data: bytes, headers_only: bool, validate: bool):
-    """:func:`parse`'s work: (header, segments)."""
+    """:func:`parse`'s work: (header, segments, stuffed zeros in them)."""
     r = _Reader(data)
     if r.u8() != 0xFF or r.u8() != M_SOI:
         raise JpegFormatError("missing SOI marker")  # cf. xjpeg.c:779-781
@@ -331,6 +355,7 @@ def _parse_markers(data: bytes, headers_only: bool, validate: bool):
     restart_interval = 0
     scan: Optional[ScanHeader] = None
     segments = np.zeros((0, 2), dtype=np.int64)
+    stuffed = 0
 
     while True:
         b = r.u8()
@@ -376,7 +401,7 @@ def _parse_markers(data: bytes, headers_only: bool, validate: bool):
             expected = (
                 -(-n_mcus // restart_interval) if restart_interval else 1
             )
-            segments, end_pos = _scan_entropy_segments(
+            segments, end_pos, stuffed = _scan_entropy_segments(
                 data, r.pos, expected, validate
             )
             r.pos = end_pos
@@ -413,4 +438,4 @@ def _parse_markers(data: bytes, headers_only: bool, validate: bool):
         nhmb=nhmb,
         nvmb=nvmb,
     )
-    return header, segments
+    return header, segments, stuffed

@@ -19,7 +19,7 @@ bit-serial moves to the device.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -470,9 +470,9 @@ class SpecScanInput:
     stream (ops/specsync_device.py) plus everything the downstream
     restart decode consumes.
 
-    The host does NO Huffman work here: destuff (one vectorised numpy
-    pass), one strided window copy, and the usual table tensors.  The
-    windows tensor is the only per-frame upload (~1.05x the stream).
+    The host does NO Huffman work here: destuff and the window rows (one
+    native pass, or numpy's), and the usual table tensors.  The windows
+    tensor is the only per-frame upload (~1.05x the stream).
     """
 
     windows: np.ndarray        # (BS, NWS, 8, 128) int32 per-lane word rows
@@ -514,28 +514,53 @@ def build_spec_scan_input(
     build_plan_no_dri's pin; unpinned, a 2.5x-average heuristic is used
     and the device flags streams whose max segment exceeds it (the
     caller then falls back to the serial scan path).
+
+    The stride and sizes follow from the destuffed length, which the
+    parse counted.  Where the host library is available, the window rows
+    come from one native pass with the interpreter lock released, destuff
+    and rows together (``entropy_native.scan_windows``; span
+    ``host.destuff``, counter ``host.native_windows``); else from
+    ``specsync.destuff`` and :func:`window_rows`.  Either way the same
+    input, bit for bit.  The rest is span ``host.scan_windows``.
     """
+    from jpeg_gpu_tpu_torch.host import entropy_native
     from jpeg_gpu_tpu_torch.host.specsync import destuff
 
     header = parsed.header
     assert header.scan is not None
     if header.restart_interval or len(parsed.segments) != 1:
         raise ValueError("build_spec_scan_input is for single-segment streams")
+    args = (header.n_mcus, subseq_bytes, nw, sb_target, max_words)
+    if entropy_native.available():
+        geom = _scan_geometry(parsed.destuffed_bytes, *args)
+        with trace.span("host.destuff", cpu=False):
+            windows = entropy_native.scan_windows(parsed, geom.bs, geom.spw, geom.nws)
+        trace.count("host.native_windows")
+        with trace.span("host.scan_windows", cpu=False):
+            return _spec_scan_input(parsed, windows, geom)
     data = destuff(parsed)
     with trace.span("host.scan_windows", cpu=False):
-        return _spec_scan_input(parsed, data, subseq_bytes, nw, sb_target, max_words)
+        geom = _scan_geometry(data.size, *args)
+        return _spec_scan_input(parsed, window_rows(data, geom.bs, geom.spw, geom.nws), geom)
 
 
-def _spec_scan_input(parsed: ParsedJpeg, data: np.ndarray, subseq_bytes: Optional[int],
-                     nw: Optional[int], sb_target: int, max_words: int) -> SpecScanInput:
-    """:func:`build_spec_scan_input` past the destuff (span
-    ``host.scan_windows``): the window rows, the step and slot maps and the
-    table tensors of the destuffed bytes ``data``."""
-    header = parsed.header
-    scan = header.scan
-    n_bytes = int(data.size)
+class _ScanGeometry(NamedTuple):
+    """The shapes of a :class:`SpecScanInput`, from its stream's length."""
+
+    n_bits: int
+    sb: int
+    spw: int
+    nws: int
+    bs: int
+    maxrec: int
+    nw: int
+
+
+def _scan_geometry(n_bytes: int, n_mcus: int, subseq_bytes: Optional[int], nw: Optional[int],
+                   sb_target: int, max_words: int) -> _ScanGeometry:
+    """The window stride and the row and record sizes of a stream of
+    ``n_bytes`` destuffed bytes (:func:`build_spec_scan_input`'s pins)."""
     n_bits = n_bytes * 8
-    n_mcus = header.n_mcus
     if n_bits >= 2**30:
         raise JpegUnsupportedError(
             "stream too large for int32 device bit offsets"
@@ -558,21 +583,27 @@ def _spec_scan_input(parsed: ParsedJpeg, data: np.ndarray, subseq_bytes: Optiona
         if sb % 4 or sb < 8:
             raise ValueError("subseq_bytes must be a multiple of 4, >= 8")
     spw = sb // 4
-    nws = spw + 3
     s_real = max(1, -(-n_bytes // sb))
     bs = -(-s_real // SEGMENTS_PER_BATCH)
     maxrec = int(min(40, max(8, (4 * sb * 8) // int(avg_bits) + 2)))
     if nw is None:
         nw = _check_nw(int(avg_bits * 2.5 / 8) + 1, max_words)
-    # Flat destuffed words, 0xFF-padded so every lane's window row and the
-    # restart rows' word overshoot read 1-bits (the bit reader contract).
+    return _ScanGeometry(n_bits, sb, spw, spw + 3, bs, maxrec, nw)
+
+
+def window_rows(data: np.ndarray, bs: int, spw: int, nws: int) -> np.ndarray:
+    """The window rows of the destuffed bytes ``data`` in numpy passes:
+    (bs, nws, 8, 128) int32, lane j = (b*8 + s)*128 + l holding the
+    big-endian words j*spw .. j*spw + nws - 1 of ``data`` 0xFF-padded (so
+    every lane's window row and the restart rows' word overshoot read
+    1-bits, the bit reader contract)."""
     total_words = bs * SEGMENTS_PER_BATCH * spw + nws
     flat = np.full(total_words * 4, 0xFF, dtype=np.uint8)
-    flat[:n_bytes] = data
+    flat[: data.size] = data
     words = flat.view(">u4")
     win = np.lib.stride_tricks.sliding_window_view(words, nws)[::spw]
     win = win[: bs * SEGMENTS_PER_BATCH]
-    windows = (
+    return (
         win.reshape(bs, SEGMENTS_PER_BATCH, nws)
         .transpose(0, 2, 1)
         .astype(np.uint32)
@@ -580,6 +611,13 @@ def _spec_scan_input(parsed: ParsedJpeg, data: np.ndarray, subseq_bytes: Optiona
         .reshape(bs, nws, SUBLANES, LANES)
     )
 
+
+def _spec_scan_input(parsed: ParsedJpeg, windows: np.ndarray, geom: _ScanGeometry) -> SpecScanInput:
+    """:func:`build_spec_scan_input` past the window rows (span
+    ``host.scan_windows``): the step and slot maps and the table tensors."""
+    header = parsed.header
+    scan = header.scan
+    n_mcus = header.n_mcus
     comp_steps, dc_steps, ac_steps, bpm = _step_maps(header, scan, 1)
     cbase, counts, symbols = _table_tensors(header)
     used = tuple(sorted(set(dc_steps) | set(ac_steps)))
@@ -593,12 +631,12 @@ def _spec_scan_input(parsed: ParsedJpeg, data: np.ndarray, subseq_bytes: Optiona
     per_mcu_ac = ac_steps[:bpm]
     return SpecScanInput(
         windows=windows,
-        n_bits=n_bits,
-        subseq_bytes=sb,
-        spw=spw,
-        nws=nws,
-        maxrec=maxrec,
-        nw=nw,
+        n_bits=geom.n_bits,
+        subseq_bytes=geom.sb,
+        spw=geom.spw,
+        nws=geom.nws,
+        maxrec=geom.maxrec,
+        nw=geom.nw,
         used_slots=used,
         bpm=bpm,
         n_mcus=n_mcus,

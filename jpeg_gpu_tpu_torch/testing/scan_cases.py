@@ -5,7 +5,7 @@ checks of the kernel on the card.
 
 import numpy as np
 
-from jpeg_gpu_tpu_torch.host.segments import _decode_tables
+from jpeg_gpu_tpu_torch.host.segments import _decode_tables, window_rows
 from jpeg_gpu_tpu_torch.info import HuffmanSpec
 
 # Codes of 11 bits in :func:`deep_code_tables`' AC table: two under each of
@@ -37,13 +37,10 @@ def random_tables(seed):
 def stream_windows(data: bytes, sb: int):
     """The window rows build_spec_scan_input cuts a destuffed stream into,
     for ``sb``-byte subsequences: (windows (BS, NWS, 8, 128) int32, spw)."""
-    spw, nws = sb // 4, sb // 4 + 3
+    spw = sb // 4
     bs = max(1, -(-len(data) // (sb * 1024)))
-    flat = np.full((bs * 1024 * spw + nws) * 4, 0xFF, dtype=np.uint8)
-    flat[: len(data)] = np.frombuffer(data, dtype=np.uint8)
-    win = np.lib.stride_tricks.sliding_window_view(flat.view(">u4"), nws)[::spw][: bs * 1024]
-    windows = win.reshape(bs, 1024, nws).transpose(0, 2, 1).astype(np.uint32).view(np.int32)
-    return np.ascontiguousarray(windows.reshape(bs, nws, 8, 128)), spw
+    windows = window_rows(np.frombuffer(data, dtype=np.uint8), bs, spw, spw + 3)
+    return np.ascontiguousarray(windows), spw
 
 
 def dc_ramp_case(n_mcus: int = 1100, sb: int = 64):

@@ -117,7 +117,8 @@ def test_cli_profile(jpg, tmp_path, capsys):
 
 def test_cli_profile_device_entropy(jpg, tmp_path, capsys):
     """With the Huffman decode on the device every span of the engine's
-    halves is in the trace, all of one frame."""
+    halves is in the trace, all of one frame, and the counters of the native
+    byte walks."""
     assert main(["--device", "cpu", "-e", "device", "--profile", str(tmp_path / "p"),
                  jpg]) == 0
     spans = _program_spans(tmp_path / "p" / "trace.json")
@@ -129,6 +130,7 @@ def test_cli_profile_device_entropy(jpg, tmp_path, capsys):
     counters = {e["name"]: e["args"][e["name"]]
                 for e in _program_spans(tmp_path / "p" / "trace.json", "C")}
     assert counters["engine.scan_frames"] == 1 and counters["engine.scan_rounds"] >= 1
+    assert counters["host.native_markers"] == counters["host.native_windows"] == 1
 
 
 def test_cli_device_errors(jpg, capsys):

@@ -11,6 +11,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from jpeg_gpu_tpu_torch.engine import device_entropy, pipeline
+from jpeg_gpu_tpu_torch.host import entropy_native
 from jpeg_gpu_tpu_torch.host.parser import parse
 from jpeg_gpu_tpu_torch.ops.entropy_device import plan_tensors
 from jpeg_gpu_tpu_torch.testing import corpus
@@ -147,11 +148,10 @@ FRAME_SPANS = ["host.parse", "engine.plan_frame", "host.destuff", "host.scan_win
                "pipeline.decode_rgb_soa"]
 
 
-def test_one_frame_through_the_engine_halves():
-    """parse, plan_frame, upload_frame, decode_frame and decode_rgb_soa on a
-    stream without restart markers: each named span once, one frame id, the
-    children under their parents, and the scan's counters."""
-    data = corpus.own_jpeg(corpus.synthetic_rgb(40, 56, seed=1), "4:2:0").data
+def _one_frame(data):
+    """parse, plan_frame, upload_frame, decode_frame and decode_rgb_soa of
+    one frame under the tracer: (its snapshot, the parse, decode_frame's
+    result, the uploaded frame)."""
     with trace.enable():
         parsed = parse(data)
         hdr = parsed.header
@@ -160,7 +160,18 @@ def test_one_frame_through_the_engine_halves():
         frame = device_entropy.upload_frame(device_entropy.plan_frame(parsed), CPU)
         res = device_entropy.decode_frame(frame, soa=True, check_errors=False)
         pipeline.decode_rgb_soa(spec, pipeline.fused_rgb_geometry(spec), res.coefs, qts)
-    snap = trace.snapshot()
+    return trace.snapshot(), parsed, res, frame
+
+
+def test_one_frame_through_the_engine_halves(monkeypatch):
+    """parse, plan_frame, upload_frame, decode_frame and decode_rgb_soa on a
+    stream without restart markers: each named span once, one frame id, the
+    children under their parents, and the scan's counters; the native byte
+    walks' counters once each, and on the numpy fallback (the host library
+    marked unavailable) not at all, with the same spans."""
+    data = corpus.own_jpeg(corpus.synthetic_rgb(40, 56, seed=1), "4:2:0").data
+    assert entropy_native.available()
+    snap, parsed, res, frame = _one_frame(data)
     assert sorted(_names(snap)) == sorted(FRAME_SPANS)
     assert {s.frame for s in snap.spans} == {parsed.frame_id}
     assert frame.frame_id == frame.plan.frame_id == parsed.frame_id
@@ -178,10 +189,16 @@ def test_one_frame_through_the_engine_halves():
     assert {s.name for s in snap.spans if s.cpu_ns is not None} == {
         "host.parse", "engine.plan_frame", "engine.upload_frame", "engine.decode_frame",
         "engine.scan_verdict", "pipeline.decode_rgb_soa"}
-    assert snap.counters == {"engine.scan_frames": 1,
-                             "engine.scan_rounds": int(res.specsync_stats[0])}
+    scan_counters = {"engine.scan_frames": 1, "engine.scan_rounds": int(res.specsync_stats[0])}
+    assert snap.counters == {**scan_counters, "host.native_markers": 1,
+                             "host.native_windows": 1}
     assert res.specsync_stats[0] >= 1
     assert parse(data).frame_id != parsed.frame_id
+
+    monkeypatch.setattr(entropy_native, "available", lambda: False)
+    snap, parsed, res, _ = _one_frame(data)
+    assert sorted(_names(snap)) == sorted(FRAME_SPANS)
+    assert snap.counters == scan_counters
 
 
 def test_spans_share_the_profilers_clock():
