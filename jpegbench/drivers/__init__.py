@@ -43,7 +43,7 @@ class Spans:
     """The harness's spans on the host clock: (name, start, end) in order,
     and with ``annotate`` the window as a ``record_function`` range
     ``jpegbench.window``, which places the host clock on the profiler's.
-    Disabled, a span costs nothing."""
+    Disabled, a span costs nothing, and only an annotated window is kept."""
 
     def __init__(self, enabled: bool = False, annotate: bool = False):
         self.enabled, self.annotate = enabled, annotate
@@ -71,7 +71,9 @@ class Spans:
             self.intervals.append((name, t, time.perf_counter()))
 
     def __call__(self, name: str):
-        return self._span(name) if self.enabled else contextlib.nullcontext()
+        if self.enabled or (self.annotate and name == "window"):
+            return self._span(name)
+        return contextlib.nullcontext()
 
 
 @dataclasses.dataclass

@@ -10,6 +10,11 @@ than the whole pool finds nothing to reuse, as in an epoch that sees each
 image once.  The window runs until ``seconds`` have passed (and one batch
 has returned); ``compare_per_batch`` outputs of each batch, at places drawn
 from the seed, are kept for the comparison.
+
+The configuration's ``scan_script`` says how the images are coded:
+``sequential``, one interleaved baseline scan (``traffic_gen.frames``), or
+``simple_progression``, libjpeg's ten-scan progressive script
+(``traffic_gen.progressive``); both of the same coefficients for a seed.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import numpy as np
 
 from jpegbench import check, traffic_gen
 from jpegbench.drivers import Context
+from jpegbench.traffic_gen import progressive
 
 CONFIG_KEYS = ("sizes", "sampling", "quality", "huffman_tables", "header", "restart_interval",
-               "upsample", "exact", "guarantees")
+               "scan_script", "upsample", "exact", "guarantees")
 TRAFFIC_KEYS = ("batch", "pool_batches", "compare_per_batch")
 # Every compared image equal to the reference's islow decode of the image
 # sent at its place of the batch.
@@ -38,6 +44,17 @@ def validate(config: dict, traffic: dict) -> None:
         raise ValueError(f"huffman_tables {config['huffman_tables']!r}")
     if config["header"] not in ("rfc2435", "jfif"):
         raise ValueError(f"header {config['header']!r}")
+    if config["scan_script"] not in ("sequential", "simple_progression"):
+        raise ValueError(f"scan_script {config['scan_script']!r}")
+    if config["scan_script"] == "simple_progression":
+        if config["header"] == "rfc2435":
+            raise ValueError("scan_script simple_progression with header rfc2435: RFC 2435 "
+                             "carries baseline frames only")
+        if config["huffman_tables"] != "optimal":
+            raise ValueError("scan_script simple_progression with huffman_tables "
+                             f"{config['huffman_tables']!r}: libjpeg optimises every "
+                             "progressive scan's tables (the Annex K AC tables hold no EOBRUN "
+                             "symbols)")
     if config["upsample"] not in ("nearest", "fancy"):
         raise ValueError(f"upsample {config['upsample']!r}")
     if abs(sum(s[2] for s in config["sizes"]) - 1.0) > 1e-9:
@@ -52,13 +69,16 @@ def make_pool(config: dict, traffic: dict, seed: int) -> List[traffic_gen.Frame]
     """``pool_batches * batch`` images whose sizes follow the configuration's
     shares (the same counts for every seed: the largest remainders of share x
     images; the seed only orders them), each with its own tables where the
-    configuration says ``optimal``."""
+    configuration says ``optimal`` (a progressive file: each scan's own)."""
     n = traffic["pool_batches"] * traffic["batch"]
     sizes = [s for s, c in zip(config["sizes"], traffic_gen.size_counts(config["sizes"], n))
              for _ in range(c)]
     order = np.random.default_rng([seed % (1 << 64), 0]).permutation(n)
-    return [traffic_gen.make_frame(seed, i, sizes[j][1], sizes[j][0], config["sampling"],
-                                   config["quality"], config["restart_interval"],
+    args = (config["sampling"], config["quality"], config["restart_interval"])
+    if config["scan_script"] == "simple_progression":
+        return [progressive.make_frame(seed, i, sizes[j][1], sizes[j][0], *args)
+                for i, j in enumerate(order)]
+    return [traffic_gen.make_frame(seed, i, sizes[j][1], sizes[j][0], *args,
                                    config["huffman_tables"], config["header"] == "rfc2435")
             for i, j in enumerate(order)]
 

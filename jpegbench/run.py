@@ -9,8 +9,9 @@ cell asks for.  The run makes its traffic from ``--seed``
 (``drivers``), compares what the timed path produced with the plain
 reference (``reference``), and prints as the last line of its standard
 output one JSON object: ``correct``, ``attempted``, ``failed``,
-``metrics`` (``--trace 0``: the cell's end-to-end metrics; ``--trace 1``:
-its per-layer metrics, from a profiled window with the harness's spans),
+``metrics`` (``--trace 0``: the cell's end-to-end metrics, from a window
+profiled only where one of them reads the card's trace; ``--trace 1``: its
+per-layer metrics, from a profiled window with the harness's spans),
 ``device``, with ``--trace 1`` ``breakdown``, and last ``checks``: each
 number compared with its limit, also printed as the last lines of
 standard error.
@@ -89,23 +90,27 @@ def run_cell(cell: "cells.Cell", seed: int, seconds: float, trace: bool, device,
 
     cuda = device.type == "cuda"
     driver = cell.driver
+    wanted = cell.per_layer if trace else cell.end_to_end
+    # A traced run profiles its window, and so does an untraced one whose
+    # end-to-end metrics read the card's trace.
+    profiled = cuda and (trace or any(m.get("source") == "device_trace" for m in wanted))
     pool = driver.make_pool(cell.config, cell.traffic, seed)
-    spans = drivers.Spans(enabled=trace, annotate=trace and cuda)
+    spans = drivers.Spans(enabled=trace, annotate=profiled)
     ctx = drivers.Context(cell.config, cell.traffic, pool, seed, device,
                           cell.config["exact"] if exact is None else exact, spans)
 
     driver.window(ctx, 0, warm=True)
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    setup_s = time.perf_counter() - t_start
     prof = None
-    if trace and cuda:
+    if profiled:
         from torch.profiler import ProfilerActivity
 
         prof = torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         prof.start()
-    if cuda:
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
     before = _launches()
-    setup_s = time.perf_counter() - t_start
     got = driver.window(ctx, seconds)
     launched = {k: v - before[k] for k, v in _launches().items()}
     if prof is not None:
@@ -121,16 +126,13 @@ def run_cell(cell: "cells.Cell", seed: int, seconds: float, trace: bool, device,
                    "count": cell.chips, "memory_peak_bytes": int(peak)}
     result = {"correct": verdict.correct, "attempted": len(facts), "failed": verdict.failed}
     breakdown = None
-    if trace:
-        if prof is not None:
-            obs.profile = profile.read_profile(prof, spans.intervals)
-            busy_s, window_s = profile.busy(obs.profile)
-            device_info.update(busy_s=busy_s, window_s=window_s)
-            breakdown = {"device_ops": profile.device_ops(obs.profile),
-                         "idle_gaps": profile.idle_gaps(obs.profile)}
-        wanted = cell.per_layer
-    else:
-        wanted = cell.end_to_end
+    if prof is not None:
+        obs.profile = profile.read_profile(prof, spans.intervals)
+    if trace and prof is not None:
+        busy_s, window_s = profile.busy(obs.profile)
+        device_info.update(busy_s=busy_s, window_s=window_s)
+        breakdown = {"device_ops": profile.device_ops(obs.profile),
+                     "idle_gaps": profile.idle_gaps(obs.profile)}
     metrics = {}
     for m in wanted:
         value = cell.reader(m["name"])(obs)

@@ -35,7 +35,9 @@ def test_cell_runs_and_is_correct(name):
     r = _run(name)
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] >= 1
     assert list(r)[-1] == "checks" and r["checks"]["compared"]["value"] >= 1
-    assert set(r["metrics"]) == {m["name"] for m in small(name).end_to_end}
+    # The CPU has no device trace: the metrics that read one are left out.
+    assert set(r["metrics"]) == {m["name"] for m in small(name).end_to_end
+                                 if m.get("source") != "device_trace"}
     assert all(m["value"] > 0 for m in r["metrics"].values())
 
 
@@ -281,6 +283,30 @@ def test_profile_busy_gaps_and_roofline(capsys):
     assert profile.ISLOW_OPS_PER_BLOCK == 960
 
 
+def test_device_ms_per_frame_is_busy_time_per_completed_frame():
+    from jpegbench.observed import Observed
+
+    read = cells.load("mjpeg-1080p.scan").reader("device_ms_per_frame")
+    p = profile.Profile([("decode_kernel", 2.0, 3.0), ("Memcpy HtoD", 2.5, 3.5),
+                         ("fused_rgb_kernel", 11.0, 12.0)], [("window", 0.0, 10.0)])
+    f = _facts(pixels=1)
+    # 1.5 s busy inside the window (the kernel after it left out), 4 frames.
+    assert read(Observed("stream", 1.0, [f] * 4, {}, None, profile=p)) == pytest.approx(375.0)
+    assert read(Observed("stream", 1.0, [f] * 4, {}, None, profile=None)) is None
+    assert read(Observed("stream", 1.0, [], {}, None, profile=p)) is None
+
+
+def test_untraced_spans_keep_only_an_annotated_window():
+    """An untraced run records no span, but keeps the window where it is
+    profiled (an end-to-end metric that reads the card's trace needs it)."""
+    for annotate, kept in ((False, []), (True, ["window"])):
+        spans = drivers.Spans(enabled=False, annotate=annotate)
+        for name in ("window", "consumer.decode_frame"):
+            with spans(name):
+                pass
+        assert [n for n, _, _ in spans.intervals] == kept
+
+
 def test_benchmark_json_names_files_that_exist():
     bench = json.loads(open(os.path.join(ROOT, "BENCHMARK.json")).read())
     assert bench["paths"] == ["jpegbench"]
@@ -304,12 +330,16 @@ def test_benchmark_json_names_files_that_exist():
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", CELLS)
 def test_cells_and_control_on_the_card(name):
-    """Each cell at a tiny size on the card: the exact path correct, the
-    control not; and the traced run's per-layer metrics all there."""
+    """Each cell at a tiny size on the card: the exact path correct with
+    every end-to-end metric there, the control not; and the traced run's
+    per-layer metrics all there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
-    assert _run(name, dev)["correct"] is True
+    r = _run(name, dev)
+    assert r["correct"] is True
+    assert set(r["metrics"]) == {m["name"] for m in small(name).end_to_end}
+    assert all(m["value"] > 0 for m in r["metrics"].values())
     assert _run(name, dev, exact=False)["correct"] is False
     r = run.run_cell(small(name), SEED, 0.5, True, dev, time.perf_counter())
     assert r["correct"] is True and r["device"]["busy_s"] > 0

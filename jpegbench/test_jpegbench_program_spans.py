@@ -145,7 +145,7 @@ def test_every_new_metric_has_its_entry():
     entries = {m["name"]: m for m in c.per_layer}
     for name in NEW:
         m = entries[name]
-        assert m["moves"] == "stream_mpix_per_s" and m["workloads"] == ["mjpeg-1080p.scan"]
+        assert m["moves"] == "device_ms_per_frame" and m["workloads"] == ["mjpeg-1080p.scan"]
         assert m["source"] == ("program_counter" if name == "k3_rounds_per_frame"
                                else "program_span")
 

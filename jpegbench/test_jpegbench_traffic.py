@@ -22,7 +22,7 @@ SEED = 2**31 + 77
 LOADER_CONFIG = {
     "name": "loader-test", "sizes": [[50, 37, 1.0]],
     "sampling": "4:2:0", "quality": 85, "huffman_tables": "optimal", "header": "jfif",
-    "restart_interval": 0, "upsample": "fancy", "exact": True,
+    "restart_interval": 0, "scan_script": "sequential", "upsample": "fancy", "exact": True,
     "guarantees": ["islow_exact", "batch_order"]}
 LOADER_TRAFFIC = {"kind": "loader", "batch": 4, "pool_batches": 2, "compare_per_batch": 4}
 LOADER_METRICS = {"end_to_end": [{"name": "loader_img_per_s", "unit": "img/s"},

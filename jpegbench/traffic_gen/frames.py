@@ -189,6 +189,48 @@ def _header(height, width, samp, qtables, tables, restart, rfc2435: bool) -> byt
     return bytes(out)
 
 
+def scan_bytes(value: np.ndarray, bits: np.ndarray, seg: np.ndarray,
+               n_segments: int) -> np.ndarray:
+    """The entropy-coded bytes of one scan: item ``i`` (in order) is the
+    ``bits[i]`` (1..33) low bits of ``value[i]``, in restart segment
+    ``seg[i]`` (non-decreasing, every one of ``n_segments`` holding some
+    bits).  Each item is laid at its bit offset in 32-bit words, each
+    segment padded with 1 bits to a byte, the bytes stuffed and split by
+    RST0..RST7 markers, numbered from 0 in every scan."""
+    # Bit offsets: each segment starts on a byte, its tail padded with 1s.
+    seg_bits = np.bincount(seg, weights=bits, minlength=n_segments).astype(np.int64)
+    seg_bytes = (seg_bits + 7) // 8
+    seg_at = 8 * (np.cumsum(seg_bytes) - seg_bytes)
+    offset = np.cumsum(bits) - bits
+    offset += (seg_at - (np.cumsum(seg_bits) - seg_bits))[seg]
+    pad = 8 * seg_bytes - seg_bits
+    padded = np.flatnonzero(pad)
+    offset = np.concatenate([offset, seg_at[padded] + seg_bits[padded]])
+    bits = np.concatenate([bits, pad[padded]])
+    value = np.concatenate([value, (1 << pad[padded]) - 1])
+
+    total = int(seg_bytes.sum())
+    word = offset >> 5
+    x = value.astype(np.uint64) << (64 - (offset & 31) - bits).astype(np.uint64)
+    n_words = total // 4 + 2
+    # Disjoint bits summed as float64: every word's sum is below 2**32, exact.
+    acc = (np.bincount(word, weights=(x >> np.uint64(32)).astype(np.float64), minlength=n_words)
+           + np.bincount(word + 1, weights=(x & np.uint64(0xFFFFFFFF)).astype(np.float64),
+                         minlength=n_words))
+    raw = np.frombuffer(acc[:n_words].astype(np.uint32).astype(">u4").tobytes(), np.uint8)[:total]
+
+    # Stuff a zero after every 0xFF; put RST(s - 1) & 7 before segment s.
+    ff = raw == 0xFF
+    seg_of_byte = np.repeat(np.arange(n_segments), seg_bytes)
+    pos = np.arange(total) + (np.cumsum(ff) - ff) + 2 * seg_of_byte
+    scan = np.zeros(total + int(ff.sum()) + 2 * (n_segments - 1), dtype=np.uint8)
+    scan[pos] = raw
+    m = pos[seg_at[1:] // 8] - 2
+    scan[m] = 0xFF
+    scan[m + 1] = 0xD0 + (np.arange(n_segments - 1) & 7)
+    return scan
+
+
 def encode(coefs: Sequence[np.ndarray], qtables, samp, height: int, width: int,
            restart: int, tables: str, rfc2435: bool) -> Tuple[bytes, Facts]:
     """A baseline JPEG of exactly these quantized coefficients (per component
@@ -286,39 +328,9 @@ def encode(coefs: Sequence[np.ndarray], qtables, samp, height: int, width: int,
     bits = length[sel, sym] + size
     value = (code[sel, sym] << size) | amp
 
-    # Bit offsets: each segment starts on a byte, its tail padded with 1s.
     seg = (block_of // bpm // restart) if restart else np.zeros(n_events, np.int64)
     n_segments = int(seg_of_mcu[-1]) + 1
-    seg_bits = np.bincount(seg, weights=bits, minlength=n_segments).astype(np.int64)
-    seg_bytes = (seg_bits + 7) // 8
-    seg_at = 8 * (np.cumsum(seg_bytes) - seg_bytes)
-    offset = np.cumsum(bits) - bits
-    offset += (seg_at - (np.cumsum(seg_bits) - seg_bits))[seg]
-    pad = 8 * seg_bytes - seg_bits
-    padded = np.flatnonzero(pad)
-    offset = np.concatenate([offset, seg_at[padded] + seg_bits[padded]])
-    bits = np.concatenate([bits, pad[padded]])
-    value = np.concatenate([value, (1 << pad[padded]) - 1])
-
-    total = int(seg_bytes.sum())
-    word = offset >> 5
-    x = value.astype(np.uint64) << (64 - (offset & 31) - bits).astype(np.uint64)
-    n_words = total // 4 + 2
-    # Disjoint bits summed as float64: every word's sum is below 2**32, exact.
-    acc = (np.bincount(word, weights=(x >> np.uint64(32)).astype(np.float64), minlength=n_words)
-           + np.bincount(word + 1, weights=(x & np.uint64(0xFFFFFFFF)).astype(np.float64),
-                         minlength=n_words))
-    raw = np.frombuffer(acc[:n_words].astype(np.uint32).astype(">u4").tobytes(), np.uint8)[:total]
-
-    # Stuff a zero after every 0xFF; put RST(s - 1) & 7 before segment s.
-    ff = raw == 0xFF
-    seg_of_byte = np.repeat(np.arange(n_segments), seg_bytes)
-    pos = np.arange(total) + (np.cumsum(ff) - ff) + 2 * seg_of_byte
-    scan = np.zeros(total + int(ff.sum()) + 2 * (n_segments - 1), dtype=np.uint8)
-    scan[pos] = raw
-    m = pos[seg_at[1:] // 8] - 2
-    scan[m] = 0xFF
-    scan[m + 1] = 0xD0 + (np.arange(n_segments - 1) & 7)
+    scan = scan_bytes(value, bits, seg, n_segments)
     data = (_header(height, width, samp, qtables, sets, restart, rfc2435)
             + scan.tobytes() + b"\xff\xd9")
     facts = Facts(bytes=len(data), scan_bytes=int(scan.size), pixels=height * width, mcus=n_mcus,
@@ -327,10 +339,11 @@ def encode(coefs: Sequence[np.ndarray], qtables, samp, height: int, width: int,
     return data, facts
 
 
-def make_frame(seed: int, index: int, height: int, width: int, sampling: str, quality: int,
-               restart: int, tables: str, rfc2435: bool) -> Frame:
-    """Frame ``index`` of a run with ``seed``: tiles of the committed source
-    of ``sampling``, whose tables must be those of ``quality``."""
+def frame_coefficients(seed: int, index: int, height: int, width: int, sampling: str,
+                       quality: int):
+    """(coefficients, the luma and chroma tables, sampling) of frame ``index``
+    of a run with ``seed``: tiles of the committed source of ``sampling``,
+    whose tables must be those of ``quality``."""
     src, src_q = source_coefficients(sampling)
     qtables = quant_tables(quality)
     if not all(np.array_equal(a, b) for a, b in zip(src_q, (qtables[0],) + (qtables[1],) * 2)):
@@ -340,5 +353,13 @@ def make_frame(seed: int, index: int, height: int, width: int, sampling: str, qu
     vmax = max(v for _, v in samp)
     coefs = tile_coefficients(src, samp, -(-height // (8 * vmax)), -(-width // (8 * hmax)),
                               frame_key(seed, index))
+    return coefs, qtables, samp
+
+
+def make_frame(seed: int, index: int, height: int, width: int, sampling: str, quality: int,
+               restart: int, tables: str, rfc2435: bool) -> Frame:
+    """Frame ``index`` of a run with ``seed`` (:func:`frame_coefficients`),
+    a baseline file (:func:`encode`)."""
+    coefs, qtables, samp = frame_coefficients(seed, index, height, width, sampling, quality)
     data, facts = encode(coefs, qtables, samp, height, width, restart, tables, rfc2435)
     return Frame(data, facts, tuple(coefs), (qtables[0],) + (qtables[1],) * 2, samp, height, width)
